@@ -1,0 +1,88 @@
+"""PyTorch port, voxel layer: frames and the voxelizer against the JAX package.
+
+Both sides get the same 1ubq atom arrays; the port runs on the CPU.
+Tolerance 1e-5: float32 matrix products summed in a different order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from timed_design_tpu.structure import load_pdb
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # the suite runs several workers per host
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def ubq(ubq_pdb_gz):
+    return load_pdb(ubq_pdb_gz)
+
+
+@pytest.mark.parametrize("codec", ["CNOCACB", "CNOCACBQ", "CNOCBCAP"])
+def test_frame_atoms_match_jax(ubq, codec):
+    from timed_design_tpu.voxel import Codec as JCodec
+    from timed_design_tpu.voxel import structure_to_frame_atoms as jax_sfa
+
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms
+
+    a = structure_to_frame_atoms(ubq, Codec.from_string(codec))
+    b = jax_sfa(ubq, JCodec.from_string(codec))
+    assert Codec.from_string(codec).channels == JCodec.from_string(codec).channels
+    for field in ("atoms_xyz", "atom_channel", "atom_sigma", "atom_prop", "ca", "rot", "valid"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    assert (a.labels, a.chain_ids, a.residue_ids) == (b.labels, b.chain_ids, b.residue_ids)
+
+
+@pytest.mark.parametrize("gaussian", [True, False], ids=["gaussian", "boolean"])
+@pytest.mark.parametrize("codec", ["CNOCACB", "CNOCACBQ"])
+def test_voxelizer_matches_jax(ubq, codec, gaussian):
+    """The port's matmul voxelizer against ``voxelize_matmul``; the Q codec
+    in boolean mode covers the signed property-channel clamp."""
+    import jax.numpy as jnp
+
+    from timed_design_tpu.ops.matmul_voxelize import voxelize_matmul as jax_vox
+
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    c = Codec.from_string(codec)
+    fa = structure_to_frame_atoms(ubq, c)
+    got = voxelize_frame_atoms(fa, c, gaussian=gaussian).numpy()
+    prop = c.property_channel
+    want = np.asarray(jax_vox(
+        *(jnp.asarray(x) for x in (fa.atoms_xyz, fa.atom_channel, fa.atom_sigma,
+                                   fa.atom_prop, fa.ca, fa.rot)),
+        n_channels=c.n_channels, prop_channel=c.channels.index(prop) if prop else -1,
+        gaussian=gaussian,
+    ))
+    assert got.shape == want.shape == (76, 21, 21, 21, c.n_channels)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    if prop and not gaussian:
+        assert got[..., -1].min() >= -1.0 and got.max() <= 1.0
+
+
+def test_voxelizer_matches_golden_frames(ubq, testing_files):
+    """The frozen golden frames of the JAX package's voxelizer convention."""
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    golden = np.load(testing_files / "golden_1ubq_frames.npz")
+    c = Codec.from_string("CNOCBCA")
+    frames = voxelize_frame_atoms(structure_to_frame_atoms(ubq, c), c).numpy()
+    np.testing.assert_allclose(frames[0], golden["frame0"], atol=1e-4)
+    np.testing.assert_allclose(frames[40], golden["frame40"], atol=1e-4)
+    np.testing.assert_allclose(frames.sum(axis=(1, 2, 3, 4)), golden["total"], rtol=1e-4)
+
+
+def test_voxelizer_chunking_is_invisible(ubq):
+    """A chunk that does not divide R gives the same frames."""
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    c = Codec.CNOCACB()
+    fa = structure_to_frame_atoms(ubq, c)
+    np.testing.assert_allclose(
+        voxelize_frame_atoms(fa, c, chunk=16).numpy(),
+        voxelize_frame_atoms(fa, c, chunk=7).numpy(), atol=1e-6)

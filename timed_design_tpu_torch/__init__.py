@@ -1,0 +1,18 @@
+"""timed_design_tpu_torch — the PyTorch/CUDA port of timed_design_tpu.
+
+The same system as the JAX package beside it, on PyTorch, with the TPU's
+Pallas kernels rewritten by hand for NVIDIA Hopper. It imports ``torch`` and
+never JAX; from the JAX package it reuses only the numpy-only
+``timed_design_tpu.constants`` and ``timed_design_tpu.structure``.
+
+Layering (bottom-up), ported so far:
+  voxel   -> codecs, residue frames (host numpy), the voxelizer
+  ops     -> the voxelizer's matrix products; the CUDA sampling kernel
+             (csrc/sample_inverse_cdf.cu) with its build and its plain version
+  models  -> TIMED 3D-CNN zoo, registry, Flax-weight conversion
+  engine  -> batched prediction, DesignSession, request coalescing
+  sample  -> temperature, Monte-Carlo sampling, sequence metrics
+  cli     -> the HTTP design service (python -m timed_design_tpu_torch.cli.serve)
+"""
+
+__version__ = "0.1.0"
