@@ -6,14 +6,18 @@ plain versions.
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds every CUDA kernel of the serving path from ``timed_design_tpu_torch/
-csrc``, checks each kernel against its plain PyTorch version at the shapes
-the path gives it (and times both with CUDA events), then starts the design
-server in-process on the full-width TIMED_rotamer model (random weights from
-a fixed seed, bfloat16, batch 512) and sends it real requests. It counts the
-kernel launches made while serving, and fails if a kernel of the path was
-not launched, disagrees with its plain version, or a response is wrong.
-Last, it profiles one warm request: stage medians, device busy time and
-idle share, and the kernels that take the most device time.
+csrc``, checks each kernel against its plain PyTorch version run on a CPU
+copy of the same inputs at the shapes the path gives it, and times it: host-
+inclusive per call (CUDA events), device time per call (torch.profiler),
+its bound, one PyTorch library call computing the same function, and the
+plain version on the card. Then it starts the design server in-process on
+the full-width TIMED_rotamer model (random weights from a fixed seed,
+bfloat16, batch 512) and sends it real requests. It counts the kernel
+launches made while serving, and fails if a kernel of the path was not
+launched, disagrees with its plain version, or a response is wrong. Last, it
+profiles one warm request (stage medians, device busy time and idle share,
+the kernels that take the most device time) and the sampling stage alone
+(every device operation it runs).
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import gzip
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -65,6 +70,88 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_events(fn, cpu: bool = False) -> list:
+    """The device events (kernels, copies, sets) that one call of ``fn``
+    leaves in a torch.profiler trace. The profiler now and then returns a
+    trace without device events; such a trace is taken again, up to four
+    times, and an empty list means all four came back empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(4):
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    return []
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time per call from CUDA events around replays of a CUDA graph
+    of ``reps`` calls of ``fn`` (no host time between the calls)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
+def device_ms(fn, reps: int = 20, match: str | None = None) -> float:
+    """Device time per call: the summed durations of the device events that
+    ``reps`` calls of ``fn`` leave in a torch.profiler trace, only those
+    whose name holds ``match`` if given. Where the profiler returns no
+    device events, the time of a CUDA graph of the calls, all included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = device_events(lambda: [fn() for _ in range(reps)])
+    if not events:
+        log("device time: the profiler returned no device events; "
+            "timing a CUDA graph of the calls instead")
+        return graph_ms(fn, reps)
+    spans = [e.time_range.end - e.time_range.start for e in events
+             if match is None or match in e.name]
+    assert spans, f"the profiler saw no device event named {match}"
+    return sum(spans) / reps / 1e3
+
+
+# The card's peaks for the bound: HBM3 at 3.35 TB/s; 32-bit integer
+# operations at 132 SMs x 64 INT32 lanes x 1.98 GHz (boost) = 16.7 T/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+PHILOX_OPS = 100  # 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor, 2 key adds
+
+
+def bound(L: int, C: int, n: int, other_bytes: int) -> tuple[float, str]:
+    """Least time (ms) for n*L draws from (L, C) float32 probabilities: the
+    probabilities and ``other_bytes`` (outputs, a class map) moved once over
+    the memory rate, or a Philox block and ceil(log2(C+1)) compares per draw
+    over the integer rate, whichever is longer."""
+    t_bytes = (L * C * 4 + other_bytes) / HBM_BYTES_PER_S
+    t_ops = n * L * (PHILOX_OPS + math.ceil(math.log2(C + 1))) / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def random_probs(L: int, C: int, seed: int):
     import numpy as np
 
@@ -87,54 +174,108 @@ def build_kernels(names: list[str]) -> None:
                 log(f"  ptxas: {line.strip()}")
 
 
+def class_map(C: int):
+    """The map a C-class head uses: the rotamer -> amino-acid table for 338
+    classes; for 20 classes, a fixed permutation (the map path at C = 20)."""
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.constants import ROTAMER_TO_AA
+
+    table = ROTAMER_TO_AA if C == 338 else np.random.default_rng(C).permutation(C)
+    return torch.from_numpy(table.astype(np.uint8))
+
+
 def check_sampling_kernel() -> dict:
-    """sample_inverse_cdf against its plain version, index for index."""
+    """sample_inverse_cdf against sample_codes_plain run on a CPU copy of the
+    same probabilities and uniforms: codes and counts equal at every shape,
+    with a class map and without. Then, at each shape, with the map the
+    serving path gives it (the rotamer table at C = 338, none at C = 20):
+    (a) the host-inclusive time per call, CUDA events around 20 back-to-back
+    calls; (b) the device time per call, from torch.profiler (the kernel
+    and the zeroing of the counts); (c) the bound and its share; (d) one
+    library call, torch.searchsorted(cdf, u.T, right=True), given the device
+    CDF and the uniforms (the count of entries <= u; the port never calls
+    it); (e) the plain version's device time on the card, given the
+    uniforms. Last, statistics, a half-mass row and determinism."""
     import numpy as np
     import torch
 
     from timed_design_tpu_torch.ops.sample import (
+        N_COUNTED,
         philox_uniforms,
-        sample_class_indices_plain,
+        sample_codes_plain,
         sample_inverse_cdf,
     )
 
     dev = torch.device("cuda")
     shapes, max_err = [], 0
     for i, (L, C, n) in enumerate(SHAPES):
-        cdf = torch.cumsum(torch.from_numpy(random_probs(L, C, i)).to(dev), -1).contiguous()
-        got = sample_inverse_cdf(cdf, n, SEED)
-        u = torch.from_numpy(philox_uniforms(SEED, n, L)).to(dev)
-        want = sample_class_indices_plain(cdf, u)
-        torch.cuda.synchronize()
-        assert got.shape == (n, L) and got.dtype == torch.int32
-        err = int((got - want).abs().max())
-        max_err = max(max_err, err)
-        ms = time_ms(lambda: sample_inverse_cdf(cdf, n, SEED))
-        plain_ms = time_ms(lambda: sample_class_indices_plain(cdf, u))
-        shapes.append({"L": L, "C": C, "n": n, "equal_to_plain": err == 0,
-                       "ms": ms, "plain_ms": plain_ms})
-        log(f"sample_inverse_cdf L={L} C={C} n={n}: equal_to_plain={err == 0} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (plain given the uniforms)")
-        assert err == 0, f"kernel disagrees with its plain version at {(L, C, n)}"
+        probs_cpu = torch.from_numpy(random_probs(L, C, i))
+        u_cpu = torch.from_numpy(philox_uniforms(SEED, n, L))
+        probs = probs_cpu.to(dev)
+        equal = True
+        for cmap in (None, class_map(C)):
+            codes, counts = sample_inverse_cdf(probs, n, SEED, None if cmap is None else cmap.to(dev))
+            want_codes, want_counts = sample_codes_plain(probs_cpu, u_cpu, cmap)
+            torch.cuda.synchronize()
+            assert codes.shape == (n, L) and codes.dtype == want_codes.dtype
+            assert counts.shape == (n, N_COUNTED) and counts.dtype == torch.int32
+            err = max(int((codes.cpu().long() - want_codes.long()).abs().max()),
+                      int((counts.cpu() - want_counts).abs().max()))
+            max_err = max(max_err, err)
+            equal &= err == 0
+            log(f"sample_inverse_cdf L={L} C={C} n={n} map={cmap is not None}: codes "
+                f"{codes.dtype} and counts equal to the plain version on the CPU: {err == 0}")
+        smap = class_map(C).to(dev) if C == 338 else None
+
+        def kernel():
+            return sample_inverse_cdf(probs, n, SEED, smap)
+
+        host_ms = time_ms(kernel)
+        ms = device_ms(kernel)
+        kernel_only_ms = device_ms(kernel, match="sample_inverse_cdf")
+        cdf = torch.cumsum(probs, -1)
+        u = u_cpu.to(dev)
+        ut = u.T.contiguous()
+        library_ms = device_ms(lambda: torch.searchsorted(cdf, ut, right=True))
+        plain_ms = device_ms(lambda: sample_codes_plain(probs, u, smap))
+        code_bytes = 1 if smap is not None or C <= 256 else 2
+        bound_ms, bound_by = bound(L, C, n, n * L * code_bytes + n * N_COUNTED * 4
+                                   + (C if smap is not None else 0))
+        shapes.append({"L": L, "C": C, "n": n, "map": smap is not None,
+                       "equal_to_plain": equal, "host_ms": host_ms, "ms": ms,
+                       "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bound_share": bound_ms / ms})
+        log(f"sample_inverse_cdf L={L} C={C} n={n} map={smap is not None}: (a) host-inclusive "
+            f"{host_ms:.4f} ms/call; (b) device {ms * 1e3:.2f} us/call (kernel alone "
+            f"{kernel_only_ms * 1e3:.2f} us); (c) bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+            f"share {bound_ms / ms:.3f}; (d) searchsorted {library_ms * 1e3:.2f} us (given the "
+            f"CDF and the uniforms); (e) plain {plain_ms * 1e3:.2f} us (given the uniforms)")
+        assert equal, f"kernel disagrees with its plain version at {(L, C, n)}"
 
     # distribution: 1e6 draws from [0.5, 0.3, 0.2, 0, ...]
-    cdf = torch.cumsum(torch.tensor([[0.5, 0.3, 0.2] + [0.0] * 17], device=dev), -1)
-    idx = sample_inverse_cdf(cdf, 1_000_000, 1).cpu().numpy().ravel()
+    probs = torch.tensor([[0.5, 0.3, 0.2] + [0.0] * 17], device=dev)
+    codes, counts = sample_inverse_cdf(probs, 1_000_000, 1)
+    idx = codes.cpu().numpy().ravel()
     freq = np.bincount(idx, minlength=20) / idx.size
     log(f"sample_inverse_cdf 1e6 draws: freq[:3]={freq[:3].tolist()}")
     assert np.abs(freq[:3] - [0.5, 0.3, 0.2]).max() <= 0.01 and freq[3:].sum() == 0
+    assert torch.equal(counts.sum(0).cpu(), torch.from_numpy(np.bincount(idx, minlength=20)).int())
     # a half-mass row: u past the mass gives class 0
     half = torch.zeros((1, 20), device=dev)
     half[0, 3] = half[0, 7] = 0.25
-    idx = sample_inverse_cdf(torch.cumsum(half, -1), 1_000_000, 11).cpu().numpy().ravel()
+    idx = sample_inverse_cdf(half, 1_000_000, 11)[0].cpu().numpy().ravel()
     zero = float((idx == 0).mean())
     log(f"sample_inverse_cdf half-mass row: share of class 0 = {zero:.4f}")
     assert abs(zero - 0.5) <= 0.01 and set(np.unique(idx).tolist()) <= {0, 3, 7}
     # determinism in the seed
-    cdf = torch.cumsum(torch.from_numpy(random_probs(76, 338, 9)).to(dev), -1)
-    a, b = sample_inverse_cdf(cdf, 500, 5), sample_inverse_cdf(cdf, 500, 5)
-    c = sample_inverse_cdf(cdf, 500, 6)
-    assert torch.equal(a, b) and not torch.equal(a, c)
+    probs = torch.from_numpy(random_probs(76, 338, 9)).to(dev)
+    smap = class_map(338).to(dev)
+    a, b = sample_inverse_cdf(probs, 500, 5, smap), sample_inverse_cdf(probs, 500, 5, smap)
+    c = sample_inverse_cdf(probs, 500, 6, smap)
+    assert all(map(torch.equal, a, b)) and not torch.equal(a[0], c[0])
     log("sample_inverse_cdf: statistics, half-mass and determinism checks passed")
     return {"shapes": shapes, "max_abs_err": max_err}
 
@@ -180,8 +321,6 @@ def profile_request(designer, pdb: str, reps: int = 10) -> None:
     intervals on the card; the idle share is the rest of the wall time."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from timed_design_tpu_torch.cli.serve import _design_payload
 
@@ -192,13 +331,17 @@ def profile_request(designer, pdb: str, reps: int = 10) -> None:
     log(f"profile: stage medians of {reps} warm 1ubq requests (ms): " + ", ".join(
         f"{k} {np.median([r[k] for r in runs]) * 1e3:.2f}" for k in STAGES))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def timed_request():
         t0 = time.perf_counter()
         request()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+        wall.append((time.perf_counter() - t0) * 1e6)
+
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in device_events(timed_request, cpu=True))
+    wall_us = wall[-1]
     busy, end, by_name = 0.0, float("-inf"), {}
     for a, b, name in dev:
         busy += max(0.0, b - max(a, end))
@@ -211,6 +354,39 @@ def profile_request(designer, pdb: str, reps: int = 10) -> None:
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {us / 1e3:7.3f} ms  {name[:90]}")
     assert dev, "the profiler saw no device activity"
+
+
+def profile_sampling(session, reps: int = 10) -> None:
+    """The sampling stage of a warm 1ubq request alone (temperature 0.2,
+    100 samples, the rotamer head): host wall per call, and one call under
+    torch.profiler with every device operation it runs."""
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.sample.sampler import apply_temperature, sample_structure
+
+    probs, _ = session.design(UBQ)
+
+    def stage():
+        p = apply_temperature(torch.as_tensor(probs, device=session.device), 0.2)
+        return sample_structure(p, 100, 7, rotamer_mode=probs.shape[1] == 338)
+
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        stage()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    dev = device_events(stage, cpu=True)
+    assert dev, "the profiler saw no device activity"
+    names: dict[str, list[float]] = {}
+    for e in dev:
+        names.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    log(f"profile sampling: median wall {np.median(walls):.3f} ms over {reps} warm calls; "
+        f"one call: {len(dev)} device operations, "
+        f"{sum(map(sum, names.values())) / 1e3:.4f} ms device time")
+    for name, us in sorted(names.items(), key=lambda kv: -sum(kv[1])):
+        log(f"profile sampling:   {len(us):3d} x {sum(us) / len(us):8.2f} us  {name[:90]}")
 
 
 def check_serving() -> dict:
@@ -256,6 +432,7 @@ def check_serving() -> dict:
         lat["design_1ubq_n100_8_concurrent"] = [dt for _, _, dt in conc]
         launches = sample_inverse_cdf.launches
         profile_request(d, pdb)
+        profile_sampling(d.session)
     finally:
         server.shutdown()
         server.server_close()
@@ -344,7 +521,10 @@ def main() -> int:
         "max_abs_err": kernel["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
-        "shape": [main_shape["L"], main_shape["C"], main_shape["n"]],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "shape":[main_shape["L"], main_shape["C"], main_shape["n"]],
         "equal_to_plain": all(s["equal_to_plain"] for s in kernel["shapes"]),
         "per_shape": kernel["shapes"],
     }]}), flush=True)

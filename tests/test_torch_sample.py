@@ -2,9 +2,11 @@
 metrics against the JAX package; the CUDA kernel against its plain version
 on the card.
 
-The Pallas kernel has no interpret-mode PRNG, so the XLA sampler
-``sample_class_indices`` is the JAX reference: fed JAX's own uniforms and
-CDF, the port's plain version must give identical indices.
+The Pallas kernel has no interpret-mode PRNG, so the XLA samplers
+``sample_class_indices`` and ``sample_sequences_with_metrics`` are the JAX
+reference: fed JAX's own uniforms, the port's plain version must give
+identical indices, codes and counts (exact: integers, and the same float32
+CDF). Metrics agree to 1e-4 relative (float32 sums in another order).
 """
 import numpy as np
 import pytest
@@ -72,14 +74,16 @@ def test_plain_sampler_under_mass_rows_give_class_zero():
 
     from timed_design_tpu.sample.sampler import sample_class_indices as jax_sample
 
-    from timed_design_tpu_torch.ops.sample import sample_class_indices
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf
 
     p = np.zeros((1, 20), np.float32)
     p[0, 3] = p[0, 7] = 0.25  # total mass 0.5
-    got = sample_class_indices(torch.from_numpy(p), 100_000, seed=11).numpy().ravel()
+    codes, counts = sample_inverse_cdf(torch.from_numpy(p), 100_000, seed=11)
+    got = codes.numpy().ravel()
     freq = np.bincount(got, minlength=20) / got.size
     np.testing.assert_allclose(freq[[0, 3, 7]], [0.5, 0.25, 0.25], atol=0.01)
     assert freq.sum() == pytest.approx(1.0) and freq[[0, 3, 7]].sum() == pytest.approx(1.0)
+    np.testing.assert_array_equal(counts.numpy(), np.eye(20, dtype=np.int32)[got])
     ref = np.asarray(jax_sample(jax.random.key(0), jnp.asarray(p), 100_000)).ravel()
     np.testing.assert_allclose(freq, np.bincount(ref, minlength=20) / ref.size, atol=0.01)
 
@@ -93,23 +97,126 @@ def test_cpu_wrapper_statistics_and_determinism():
         sample_inverse_cdf,
     )
 
-    cdf = torch.cumsum(torch.tensor([[0.5, 0.3, 0.2] + [0.0] * 17]), -1)
+    probs = torch.tensor([[0.5, 0.3, 0.2] + [0.0] * 17])
     launches = sample_inverse_cdf.launches
-    idx = sample_inverse_cdf(cdf, 1_000_000, seed=1).numpy().ravel()
+    codes, counts = sample_inverse_cdf(probs, 1_000_000, seed=1)
+    idx = codes.numpy().ravel()
+    assert codes.dtype == torch.uint8 and counts.dtype == torch.int32
     freq = np.bincount(idx, minlength=20) / idx.size
     np.testing.assert_allclose(freq[:3], [0.5, 0.3, 0.2], atol=0.01)
     assert freq[3:].sum() == 0
     assert sample_inverse_cdf.launches == launches  # no kernel on the CPU
 
-    cdf = torch.cumsum(torch.from_numpy(_probs(76, 338)), -1)
-    a = sample_inverse_cdf(cdf, 50, seed=5)
+    probs = torch.from_numpy(_probs(76, 338))
+    a, _ = sample_inverse_cdf(probs, 50, seed=5)
+    assert a.dtype == torch.int16  # 338 unmapped classes do not fit a byte
     u = torch.from_numpy(philox_uniforms(5, 50, 76))
-    torch.testing.assert_close(a, sample_class_indices_plain(cdf, u))
-    torch.testing.assert_close(a, sample_inverse_cdf(cdf, 50, seed=5))
-    assert (a != sample_inverse_cdf(cdf, 50, seed=6)).any()
-    assert sample_inverse_cdf(cdf, 0, seed=5).shape == (0, 76)
+    want = sample_class_indices_plain(torch.cumsum(probs, -1), u)
+    torch.testing.assert_close(a.int(), want, rtol=0, atol=0)
+    torch.testing.assert_close(a, sample_inverse_cdf(probs, 50, seed=5)[0])
+    assert (a != sample_inverse_cdf(probs, 50, seed=6)[0]).any()
+    codes, counts = sample_inverse_cdf(probs, 0, seed=5)
+    assert codes.shape == (0, 76) and counts.shape == (0, 20)
     with pytest.raises(ValueError):
-        sample_inverse_cdf(cdf.double(), 4, seed=0)
+        sample_inverse_cdf(probs.double(), 4, seed=0)
+    with pytest.raises(ValueError, match="class_map"):
+        sample_inverse_cdf(probs, 4, seed=0, class_map=torch.zeros(338, dtype=torch.int32))
+
+
+def _rotamer_map():
+    from timed_design_tpu_torch.constants import ROTAMER_TO_AA
+
+    return torch.from_numpy(ROTAMER_TO_AA.astype(np.uint8))
+
+
+@pytest.mark.parametrize("L,C,n,rotamer", [
+    (9, 20, 64, False), (76, 338, 32, False), (76, 338, 32, True),
+    (200, 338, 7, False), (200, 338, 7, True)])
+def test_sample_codes_plain_equals_old_composition(L, C, n, rotamer):
+    """One call = cumsum, count of CDF entries <= u, the rotamer gather and
+    the one-hot counts, as the serving path composed them before."""
+    from timed_design_tpu_torch.ops.sample import (
+        philox_uniforms,
+        sample_class_indices_plain,
+        sample_codes_plain,
+    )
+    from timed_design_tpu_torch.sample import counts_from_codes
+
+    probs = torch.from_numpy(_probs(L, C, seed=L) ** 3)
+    u = torch.from_numpy(philox_uniforms(21, n, L))
+    cmap = _rotamer_map() if rotamer else None
+    codes, counts = sample_codes_plain(probs, u, cmap)
+    idx = sample_class_indices_plain(torch.cumsum(probs, dim=-1), u)
+    want = cmap.long()[idx.long()] if rotamer else idx.long()
+    np.testing.assert_array_equal(codes.long().numpy(), want.numpy())
+    assert codes.dtype == (torch.uint8 if rotamer or C <= 256 else torch.int16)
+    in_range = torch.where(want < 20, want, 0)
+    old = counts_from_codes(in_range, (want < 20).float())
+    np.testing.assert_array_equal(counts.numpy(), old.numpy().astype(np.int32))
+
+
+@pytest.mark.parametrize("L,C,n,rotamer", [
+    (9, 20, 64, False), (76, 338, 32, False), (76, 338, 32, True)])
+def test_sample_codes_plain_matches_jax_sample_sequences_with_metrics(L, C, n, rotamer):
+    """Fed JAX's own uniforms, the plain version gives the codes and counts
+    of ``sample_sequences_with_metrics``; metrics from the counts agree to
+    1e-4 relative."""
+    import jax
+
+    from timed_design_tpu.sample.metrics import counts_from_codes as jax_counts
+    from timed_design_tpu.sample.sampler import sample_sequences_with_metrics as jax_ssm
+
+    from timed_design_tpu_torch.ops.sample import sample_codes_plain
+    from timed_design_tpu_torch.sample import batched_metrics_from_counts
+
+    p = _probs(L, C, seed=5)
+    key = jax.random.key(8)
+    want_codes, want_metrics = jax_ssm(key, p, n, rotamer_mode=rotamer)
+    want_codes = np.asarray(want_codes)
+    u = np.asarray(jax.random.uniform(key, (n, L, 1)))[..., 0]
+    codes, counts = sample_codes_plain(torch.from_numpy(p), torch.from_numpy(u),
+                                       _rotamer_map() if rotamer else None)
+    np.testing.assert_array_equal(codes.long().numpy(), want_codes)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jax_counts(want_codes)))
+    got = batched_metrics_from_counts(counts.float())
+    for k in ("charge", "isoelectric_point", "molecular_weight", "molar_extinction_280"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want_metrics[k]),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_sample_codes_plain_cdf_is_the_cpu_cumsum():
+    """The plain version's float64-accumulated CDF is bit for bit the CPU's
+    float32 cumsum, which the kernel reproduces."""
+    p = torch.from_numpy(_probs(76, 338, seed=3) ** 5)
+    want = torch.cumsum(p, dim=-1)
+    got = torch.cumsum(p.to(torch.float64), dim=-1).to(torch.float32)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        want.numpy(), np.cumsum(p.numpy().astype(np.float64), axis=-1).astype(np.float32))
+
+
+def _draw_threshold(x: int) -> int:
+    """The kernel's draw_threshold (csrc/sample_inverse_cdf.cu), written out:
+    the bits of the largest double that rounds to a float32 <= u."""
+    k = x >> 8
+    if k == 0:
+        return (1023 - 150) << 52
+    e = k.bit_length() - 1
+    u_bits = ((1023 + e - 24) << 52) | ((k << (52 - e)) & ((1 << 52) - 1))
+    m_bits = u_bits + (1 << 28)
+    return m_bits - 1 if e == 23 and k & 1 else m_bits
+
+
+def test_draw_threshold_rule():
+    """(float)cdf <= u exactly when the bits of the double cdf are <= the
+    threshold: the threshold rounds to u or below, the next double above it
+    rounds above u, and its u is the kernel's uniform."""
+    words = np.random.default_rng(6).integers(0, 2**32, 20_000).tolist()
+    words += [0, 255, 256, 511, 2**31, 2**32 - 1, 2**32 - 256, 2**31 + 256]
+    for x in words:
+        u = np.float32(x >> 8) * np.float32(2.0**-24)
+        t = np.array([_draw_threshold(x)], np.int64).view(np.float64)[0]
+        assert np.float32(t) <= u < np.float32(np.nextafter(t, np.inf))
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.2, 1.0, 2.0])
@@ -149,49 +256,57 @@ def test_sample_structure_rotamer_mode():
     from timed_design_tpu.constants import ROTAMER_TO_AA
     from timed_design_tpu.sample.metrics import sequence_metrics as jax_seq_metrics
 
-    from timed_design_tpu_torch.ops.sample import sample_class_indices
-    from timed_design_tpu_torch.sample import sample_structure
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf
+    from timed_design_tpu_torch.sample import apply_temperature, sample_structure
 
     p = _probs(40, 338, seed=8)
-    out = sample_structure(p, 6, seed=9, rotamer_mode=True, temperature=0.5)
-    assert out == sample_structure(p, 6, seed=9, rotamer_mode=True, temperature=0.5)
-    from timed_design_tpu_torch.sample import apply_temperature
-
-    idx = sample_class_indices(apply_temperature(torch.from_numpy(p), 0.5), 6, 9).numpy()
-    seqs = ["".join("ACDEFGHIKLMNPQRSTVWY"[a] for a in ROTAMER_TO_AA[row]) for row in idx]
+    out = sample_structure(p, 6, seed=9, rotamer_mode=True, temperature=0.5, device="cpu")
+    assert out == sample_structure(p, 6, seed=9, rotamer_mode=True, temperature=0.5,
+                                   device="cpu")
+    idx, _ = sample_inverse_cdf(apply_temperature(torch.from_numpy(p), 0.5), 6, 9)
+    seqs = ["".join("ACDEFGHIKLMNPQRSTVWY"[a] for a in ROTAMER_TO_AA[row])
+            for row in idx.numpy()]
     assert [s for s, *_ in out] == seqs
     for s, *m in out:
         np.testing.assert_allclose(m, jax_seq_metrics(s), rtol=1e-4)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,C,n", [(76, 338, 1000), (1024, 20, 256), (4096, 338, 64)])
-def test_kernel_matches_plain_on_card(cuda_device, L, C, n):
+@pytest.mark.parametrize("L,C,n,rotamer", [
+    (76, 338, 1000, False), (76, 338, 1000, True), (1024, 20, 256, False),
+    (4096, 338, 64, False), (4096, 338, 64, True), (75, 338, 33, True), (75, 20, 33, False)])
+def test_kernel_matches_plain_on_card(cuda_device, L, C, n, rotamer):
+    """Codes and counts equal to the plain version run on a CPU copy."""
     from timed_design_tpu_torch.ops.sample import (
         philox_uniforms,
-        sample_class_indices_plain,
+        sample_codes_plain,
         sample_inverse_cdf,
     )
 
-    cdf = torch.cumsum(torch.from_numpy(_probs(L, C)).to(cuda_device), -1)
+    probs = torch.from_numpy(_probs(L, C) ** 4)
+    cmap = _rotamer_map() if rotamer else None
     launches = sample_inverse_cdf.launches
-    got = sample_inverse_cdf(cdf, n, seed=17)
+    codes, counts = sample_inverse_cdf(probs.to(cuda_device), n, seed=17,
+                                       class_map=None if cmap is None else cmap.to(cuda_device))
     torch.cuda.synchronize()
     assert sample_inverse_cdf.launches == launches + 1
-    u = torch.from_numpy(philox_uniforms(17, n, L)).to(cuda_device)
-    torch.testing.assert_close(got, sample_class_indices_plain(cdf, u), rtol=0, atol=0)
+    want_codes, want_counts = sample_codes_plain(
+        probs, torch.from_numpy(philox_uniforms(17, n, L)), cmap)
+    assert codes.dtype == want_codes.dtype
+    torch.testing.assert_close(codes.cpu(), want_codes, rtol=0, atol=0)
+    torch.testing.assert_close(counts.cpu(), want_counts, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
 def test_kernel_statistics_on_card(cuda_device):
     from timed_design_tpu_torch.ops.sample import sample_inverse_cdf
 
-    cdf = torch.cumsum(torch.tensor([[0.5, 0.3, 0.2] + [0.0] * 17], device=cuda_device), -1)
-    idx = sample_inverse_cdf(cdf, 1_000_000, seed=1).cpu().numpy().ravel()
+    probs = torch.tensor([[0.5, 0.3, 0.2] + [0.0] * 17], device=cuda_device)
+    idx = sample_inverse_cdf(probs, 1_000_000, seed=1)[0].cpu().numpy().ravel()
     np.testing.assert_allclose(np.bincount(idx, minlength=20)[:3] / idx.size,
                                [0.5, 0.3, 0.2], atol=0.01)
     half = torch.zeros((1, 20), device=cuda_device)
     half[0, 3] = half[0, 7] = 0.25
-    idx = sample_inverse_cdf(torch.cumsum(half, -1), 100_000, seed=11).cpu().numpy().ravel()
+    idx = sample_inverse_cdf(half, 100_000, seed=11)[0].cpu().numpy().ravel()
     np.testing.assert_allclose((idx == 0).mean(), 0.5, atol=0.01)
     assert set(np.unique(idx)) <= {0, 3, 7}

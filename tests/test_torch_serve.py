@@ -72,7 +72,7 @@ def server_url(ckpts):
     args = build_parser().parse_args([
         "--model", f"TIMED@{ckpts['TIMED']}",
         "--model", f"TIMED_rotamer@{ckpts['TIMED_rotamer']}",
-        "--compute_dtype", "float32", "--batch_size", "80",
+        "--compute_dtype", "float32", "--batch_size", "80", "--device", "cpu",
     ])
     designers = build_designers(args)
     server = make_server(designers["TIMED"], "127.0.0.1", 0, "TIMED",
@@ -104,7 +104,7 @@ def test_design_session_matches_jax(ckpts, ubq_pdb_gz):
     for name in ("TIMED", "TIMED_rotamer"):
         model = f"{name}@{ckpts[name]}"
         want, wfa = JaxSession(model, compute_dtype="float32", batch_size=64).design(ubq_pdb_gz)
-        s = DesignSession(model, compute_dtype="float32", batch_size=64)
+        s = DesignSession(model, compute_dtype="float32", batch_size=64, device="cpu")
         got, fa = s.design(ubq_pdb_gz)
         assert s.device.type == "cpu" and set(s.last_timings) == {"voxelisation", "prediction"}
         assert got.shape == want.shape and fa.residue_ids == wfa.residue_ids
@@ -116,8 +116,8 @@ def test_predict_structure_caches_predictors(ckpts, ubq_pdb_gz):
     from timed_design_tpu_torch.engine import predictor as P
 
     model = f"TIMED@{ckpts['TIMED']}"
-    a, fa = P.predict_structure(ubq_pdb_gz, model, batch_size=32)
-    b, _ = P.predict_structure(ubq_pdb_gz, model, batch_size=32)
+    a, fa = P.predict_structure(ubq_pdb_gz, model, batch_size=32, device="cpu")
+    b, _ = P.predict_structure(ubq_pdb_gz, model, batch_size=32, device="cpu")
     assert a.shape == (76, 20) and len(fa.labels) == 76
     np.testing.assert_array_equal(a, b)
     assert sum(k[0][1] == model for k in P._STRUCTURE_PREDICTOR_CACHE) == 1
@@ -210,12 +210,12 @@ def test_metrics_endpoint(server_url, pdb_text):
 
 def test_coalescer_packs_requests_like_solo_runs(ckpts, ubq_pdb_gz):
     """Requests packed into one buffer get the rows a solo run gives."""
-    from timed_design_tpu.structure import load_pdb
-
     from timed_design_tpu_torch.engine import DesignSession
     from timed_design_tpu_torch.engine.coalescer import CoalescingDesigner
+    from timed_design_tpu_torch.structure import load_pdb
 
-    session = DesignSession(f"TIMED@{ckpts['TIMED']}", compute_dtype="float32", batch_size=32)
+    session = DesignSession(f"TIMED@{ckpts['TIMED']}", compute_dtype="float32", batch_size=32,
+                            device="cpu")
     s = load_pdb(ubq_pdb_gz)
     parts = [session.voxelize(s)[0][:n] for n in (76, 30, 5)]
     d = CoalescingDesigner(session, window_ms=300)
@@ -231,14 +231,14 @@ def test_coalescer_packs_requests_like_solo_runs(ckpts, ubq_pdb_gz):
 
 
 def test_serial_and_ensemble_designers(ckpts, ubq_pdb_gz):
-    from timed_design_tpu.structure import load_pdb
-
     from timed_design_tpu_torch.cli.serve import build_designers, build_parser
+    from timed_design_tpu_torch.structure import load_pdb
 
     args = build_parser().parse_args([
         "--model", f"TIMED_rotamer@{ckpts['TIMED_rotamer']}",
         "--model", f"TIMED_rotamer_balanced@{ckpts['TIMED_rotamer_balanced']}",
         "--compute_dtype", "float32", "--batch_size", "80", "--no-coalesce", "--ensemble",
+        "--device", "cpu",
     ])
     designers = build_designers(args)
     s = load_pdb(ubq_pdb_gz)
@@ -252,17 +252,19 @@ def test_serial_and_ensemble_designers(ckpts, ubq_pdb_gz):
 
 _HYGIENE = """
 import sys
-for name in ("jax", "flax", "h5py", "ml_dtypes", "matplotlib"):
+for name in ("timed_design_tpu", "jax", "flax", "h5py", "ml_dtypes", "matplotlib"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import runpy
-sys.argv = ["serve", "--model", sys.argv[1], "--port", "0", "--batch_size", "80"]
+sys.argv = ["serve", "--model", sys.argv[1], "--port", "0", "--batch_size", "80",
+            "--device", "cpu"]
 runpy.run_module("timed_design_tpu_torch.cli.serve", run_name="__main__")
 """
 
 
 def test_serving_path_imports_no_jax(ckpts, pdb_text):
-    """The server starts and answers /design with jax, flax, h5py,
-    ml_dtypes and matplotlib unimportable, as on a machine without them."""
+    """The server starts and answers /design with the JAX package, jax,
+    flax, h5py, ml_dtypes and matplotlib unimportable, as on a machine
+    without them."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-c", _HYGIENE, f"TIMED@{ckpts['TIMED']}"],
@@ -281,3 +283,33 @@ def test_serving_path_imports_no_jax(ckpts, pdb_text):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def test_default_device_is_the_card():
+    """No silent CPU fallback: the default device is CUDA, and without a
+    card asking for it raises."""
+    from timed_design_tpu_torch.engine.predictor import default_device
+
+    if torch.cuda.is_available():
+        assert default_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            default_device()
+
+
+def test_serve_needs_a_card_unless_told_cpu(ckpts):
+    """td-serve without --device cpu on a machine with no card exits
+    non-zero with a message; with --device cpu it builds its designers."""
+    from timed_design_tpu_torch.cli.serve import build_designers, build_parser
+
+    model = f"TIMED@{ckpts['TIMED']}"
+    if not torch.cuda.is_available():
+        env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+        proc = subprocess.run(
+            [sys.executable, "-m", "timed_design_tpu_torch.cli.serve", "--model", model,
+             "--port", "0"], capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+        assert proc.returncode != 0 and "--device cpu" in proc.stderr
+    args = build_parser().parse_args(["--model", model, "--device", "cpu", "--no-coalesce"])
+    assert build_parser().parse_args(["--model", model]).device == "cuda"
+    designers = build_designers(args)
+    assert designers["TIMED"].session.device == torch.device("cpu")

@@ -51,7 +51,7 @@ def test_voxelizer_matches_jax(ubq, codec, gaussian):
 
     c = Codec.from_string(codec)
     fa = structure_to_frame_atoms(ubq, c)
-    got = voxelize_frame_atoms(fa, c, gaussian=gaussian).numpy()
+    got = voxelize_frame_atoms(fa, c, gaussian=gaussian, device="cpu").numpy()
     prop = c.property_channel
     want = np.asarray(jax_vox(
         *(jnp.asarray(x) for x in (fa.atoms_xyz, fa.atom_channel, fa.atom_sigma,
@@ -71,7 +71,7 @@ def test_voxelizer_matches_golden_frames(ubq, testing_files):
 
     golden = np.load(testing_files / "golden_1ubq_frames.npz")
     c = Codec.from_string("CNOCBCA")
-    frames = voxelize_frame_atoms(structure_to_frame_atoms(ubq, c), c).numpy()
+    frames = voxelize_frame_atoms(structure_to_frame_atoms(ubq, c), c, device="cpu").numpy()
     np.testing.assert_allclose(frames[0], golden["frame0"], atol=1e-4)
     np.testing.assert_allclose(frames[40], golden["frame40"], atol=1e-4)
     np.testing.assert_allclose(frames.sum(axis=(1, 2, 3, 4)), golden["total"], rtol=1e-4)
@@ -84,5 +84,5 @@ def test_voxelizer_chunking_is_invisible(ubq):
     c = Codec.CNOCACB()
     fa = structure_to_frame_atoms(ubq, c)
     np.testing.assert_allclose(
-        voxelize_frame_atoms(fa, c, chunk=16).numpy(),
-        voxelize_frame_atoms(fa, c, chunk=7).numpy(), atol=1e-6)
+        voxelize_frame_atoms(fa, c, chunk=16, device="cpu").numpy(),
+        voxelize_frame_atoms(fa, c, chunk=7, device="cpu").numpy(), atol=1e-6)

@@ -2,10 +2,13 @@
 
 The same system as the JAX package beside it, on PyTorch, with the TPU's
 Pallas kernels rewritten by hand for NVIDIA Hopper. It imports ``torch`` and
-never JAX; from the JAX package it reuses only the numpy-only
-``timed_design_tpu.constants`` and ``timed_design_tpu.structure``.
+never JAX, and nothing of the JAX package: what it needs from there it keeps
+as its own copy, under the same module name. Its entry points run on the
+CUDA device unless the caller asks for the CPU.
 
 Layering (bottom-up), ported so far:
+  constants -> amino-acid tables, the rotamer codec
+  structure -> PDB parsing (native C++ scanner in csrc/pdbscan.cpp)
   voxel   -> codecs, residue frames (host numpy), the voxelizer
   ops     -> the voxelizer's matrix products; the CUDA sampling kernel
              (csrc/sample_inverse_cdf.cu) with its build and its plain version

@@ -2,9 +2,11 @@
 
     python -m timed_design_tpu_torch.cli.serve --model TIMED@ckpt.npz --port 8080
 
-The model loads once at startup onto the GPU when there is one (else the
-CPU); every request then runs voxelize + predict on that device, and
-Monte-Carlo samples are drawn there by the ``sample_inverse_cdf`` kernel.
+The model loads once at startup onto ``--device`` (default ``cuda``; the
+server exits with a message when there is no card, and runs on the CPU only
+with ``--device cpu``); every request then runs voxelize + predict on that
+device, and Monte-Carlo samples are drawn there, on the card by the
+``sample_inverse_cdf`` kernel.
 
 API (JSON):
   GET  /healthz   -> {"status": "ok", "model": ..., "n_classes": ...}
@@ -45,6 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the model and the sampler (default "
+                        "cuda; cpu only when named)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--quantize", type=str, default=None,
@@ -151,10 +156,9 @@ def _design_payload(designer, pdb_text: str, n_samples: int = 0,
                     temperature: float = 0.2, seed: int | None = None) -> dict:
     """Parse -> design -> decode, plus ``n_samples`` Monte-Carlo samples
     drawn on the designer's device."""
-    from timed_design_tpu.constants import AA1, compress_rotamer_probs
-    from timed_design_tpu.structure import parse_pdb_string
-
+    from ..constants import AA1, compress_rotamer_probs
     from ..sample.sampler import apply_temperature, sample_structure
+    from ..structure import parse_pdb_string
 
     t0 = time.perf_counter()
     structure = parse_pdb_string(pdb_text, name="query")[0]
@@ -338,11 +342,15 @@ def build_designers(args) -> dict:
     if args.quantize is not None:
         raise SystemExit("--quantize is not ported to PyTorch yet "
                          "(ROADMAP, Queue 1: quantize/optimize)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device here; "
+                         "pass --device cpu to serve on the CPU")
     designers: dict = {}
     for model in args.model:
         session = DesignSession(
             model, codec=args.codec, batch_size=args.batch_size,
-            compute_dtype=args.compute_dtype,
+            device=device, compute_dtype=args.compute_dtype,
             allow_random_weights=args.allow_random_weights,
         )
         d = (SerialDesigner(session) if args.no_coalesce

@@ -1,100 +1,312 @@
-// Categorical draws by inverse CDF with an in-kernel Philox generator.
+// Monte-Carlo sequence draws in one launch: probabilities -> CDF -> inverse-
+// CDF draws with an in-kernel Philox generator -> class map -> packed codes
+// and per-sample residue counts.
 //
 // Replaces the TPU kernel timed_design_tpu/ops/pallas_sample.py
-// (pallas_sample_class_indices): the same semantics, not the same blocks.
-// For each draw (sample s, position l) a uniform u in [0, 1) with 24 random
-// bits is taken from Philox4x32-10 keyed on the 64-bit seed with counter
-// (l, s, 0, 0); the class is the count of CDF entries <= u, found by an
-// upper-bound binary search over the position's CDF row (equal to the count
-// because the row is non-decreasing). A u past the row's mass (count == C)
-// gives class 0, as the reference's argmax form does.
+// (pallas_sample_class_indices) together with what consumes its indices on
+// the serving path, sample_sequences_with_metrics up to the metrics
+// (timed_design_tpu/sample/sampler.py): the cumulative sum before the draws,
+// the rotamer -> amino-acid gather and the one-hot residue counts after.
+// The same semantics, not the same blocks:
+//   - CDF: each row's running sum accumulated in float64, in order, and each
+//     prefix rounded to float32: what torch.cumsum of float32 gives on the
+//     CPU, so the plain version there gives the same CDF bit for bit.
+//   - Draw (sample s, position l): Philox4x32-10 keyed on the 64-bit seed,
+//     counter (l, s, 0, 0); u = (x0 >> 8) * 2^-24. The class is the count of
+//     CDF entries <= u, and 0 where that count reaches C (u past the row's
+//     mass), as the reference's argmax form gives.
+//   - Code: class_map[class] when a map is given (the 338 -> 20 rotamer
+//     table), else the class. Codes are uint8 (uint16 when unmapped classes
+//     exceed 255), stored four to a store.
+//   - Counts: per sample, the number of codes equal to each of 0..19,
+//     accumulated with shared-memory atomics and flushed with one global
+//     atomic per (sample, pair of codes) per block. Integer sums are exact
+//     in any order.
 //
-// What bounds it: memory and latency, not arithmetic. A block reads the CDF
-// rows of its 32 positions (32 * C * 4 bytes, 43 KB at C = 338) once into
-// shared memory and writes n * 32 * 4 bytes of indices; each draw costs one
-// Philox block (20 32-bit multiplies) and ceil(log2(C + 1)) shared-memory
-// reads. One thread per draw; the 32 threads of a warp take the 32 positions
-// of one sample, so the stores of a warp are one contiguous 128-byte line.
+// What bounds it on an H100: at serving shapes (76 positions, 338 classes,
+// 100 samples) latency alone -- 118 KB in, 16 KB out and 7.6k draws are far
+// below what one launch costs -- so the answer there is to do the whole
+// stage in one launch where there were about nine. At (4096, 338, 64)
+// memory (5.5 MB of probabilities, ~1.7 us at 3.35 TB/s) and the integer
+// work of 262k Philox blocks (~1.7 us at 16.7 T int32 op/s) would tie. What
+// holds it above both is latency inside a block, in three phases:
+//   - the tile's load: one round trip to L2 or HBM;
+//   - the row scan: bit-exactness with the CPU's cumsum rules out a parallel
+//     scan, so a row is a chain of C dependent float64 adds. The tile holds
+//     doubles, converted once while it is loaded, so no conversion sits on
+//     the chain (float64 <-> float32 conversions issue at a quarter of a
+//     warp per cycle);
+//   - the searches: ceil(log2(C + 1)) dependent steps of random shared-
+//     memory reads.
+// The design:
+//   - A block takes kTileL = 16 positions and a chunk of samples; the
+//     launcher splits samples only as far as it takes to give each SM work,
+//     and never below kMinSamples samples a block, so rows are re-staged
+//     from L2 at most a few times.
+//   - The tile's probabilities arrive by 16-byte loads from one contiguous
+//     span (the tile's rows are adjacent in memory), coalesced, into shared
+//     rows of odd stride (C | 1 doubles): lanes at the same column of
+//     different rows hit different banks.
+//   - One thread per row turns it into its CDF in place; meanwhile every
+//     other thread draws its first four uniforms, which need no CDF.
+//   - Each draw becomes an integer threshold t: (float)cdf <= u exactly when
+//     the bits of the double cdf are <= t, so the search compares integers
+//     and never rounds a double to float32.
+//   - A thread takes four adjacent positions of one sample: four searches
+//     interleaved step by step, their probes loaded unconditionally so the
+//     four reads are in flight together; then the map, one 4-byte store of
+//     four codes, and four shared-memory count atomics.
 //
-// The plain PyTorch version is timed_design_tpu_torch/ops/sample.py
-// (sample_class_indices_plain over philox_uniforms), which reproduces this
-// kernel's draws index for index.
+// The plain PyTorch version is sample_codes_plain in
+// timed_design_tpu_torch/ops/sample.py, run on philox_uniforms; it gives the
+// same codes and counts.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileL = 32;             // positions per block: one per lane
-constexpr int kThreads = 256;          // 8 warps, one sample each per step
-constexpr int kSamplesPerBlock = 32;   // samples a block draws per position
+constexpr int kTileL = 16;        // positions per block
+constexpr int kThreads = 256;
+constexpr int kMinSamples = 32;   // samples per block, at least ...
+constexpr int kMaxSamples = 64;   // ... and at most (the counts' shared tile)
+constexpr int kCounts = 20;       // counted codes: the 20 amino acids
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+__device__ __forceinline__ uint32_t philox_x0(uint32_t l, uint32_t s, uint32_t k0,
+                                              uint32_t k1) {
+  uint32_t c0 = l, c1 = s, c2 = 0u, c3 = 0u;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
     }
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    const uint32_t lo0 = 0xD2511F53u * c0;
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
   }
-  return c;
+  return c0;
 }
 
+// The draw's threshold, as the bits of a double: the largest double t such
+// that float32(x) <= u for every double x <= t, under round-to-nearest-even.
+// It is the midpoint m between u and the next float32 above u when u's last
+// mantissa bit is even (a tie rounds down to u), else the double just below
+// m. So (float)cdf <= u exactly when cdf <= t, and for the non-negative
+// doubles of the tile that is an integer comparison of their bits. Built
+// from x's top 24 bits with integer operations only: u = k * 2^-24 with
+// k = x >> 8 has the float32 exponent e - 24, e = floor(log2 k), and its
+// last mantissa bit is k's when e == 23, else 0; half of its float32 ulp is
+// 2^28 in the units of the double's mantissa.
+__device__ __forceinline__ long long draw_threshold(uint32_t x) {
+  const uint32_t k = x >> 8;
+  if (k == 0) return static_cast<long long>(1023 - 150) << 52;  // u = 0: m = 2^-150
+  const int e = 31 - __clz(k);
+  const long long u_bits = (static_cast<long long>(1023 + e - 24) << 52) |
+                           ((static_cast<long long>(k) << (52 - e)) & ((1LL << 52) - 1));
+  const long long m_bits = u_bits + (1LL << 28);
+  return (e == 23 && (k & 1u)) ? m_bits - 1 : m_bits;
+}
+
+// Thresholds of the draws of positions l0 + 4 * quad + j of sample s.
+__device__ __forceinline__ void draw4(int l0, int quad, int s, uint32_t k0,
+                                      uint32_t k1, long long t[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    t[j] = draw_threshold(philox_x0(static_cast<uint32_t>(l0 + 4 * quad + j),
+                                    static_cast<uint32_t>(s), k0, k1));
+  }
+}
+
+template <typename Code>
+struct Pack4;
+template <>
+struct Pack4<uint8_t> {
+  using type = uchar4;
+  static __device__ uchar4 make(const int c[4]) {
+    return make_uchar4(c[0], c[1], c[2], c[3]);
+  }
+};
+template <>
+struct Pack4<uint16_t> {
+  using type = ushort4;
+  static __device__ ushort4 make(const int c[4]) {
+    return make_ushort4(c[0], c[1], c[2], c[3]);
+  }
+};
+
+template <typename Code>
 __global__ void __launch_bounds__(kThreads)
-sample_inverse_cdf_kernel(const float* __restrict__ cdf,
-                          int32_t* __restrict__ out, int L, int C, int n,
-                          uint32_t key0, uint32_t key1) {
-  extern __shared__ float tile[];  // [rows][C]
+sample_inverse_cdf_kernel(const float* __restrict__ probs,
+                          const uint8_t* __restrict__ class_map,
+                          Code* __restrict__ codes, int32_t* __restrict__ counts,
+                          int L, int C, int stride, int top, int n,
+                          int samples_per_block, bool vec_loads, uint32_t key0,
+                          uint32_t key1) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* tile = reinterpret_cast<double*>(smem);                    // [rows][stride]
+  int* cnt = reinterpret_cast<int*>(tile + kTileL * stride);         // [samples][20]
+  uint8_t* map = reinterpret_cast<uint8_t*>(cnt + kMaxSamples * kCounts);  // [C]
+
   const int l0 = blockIdx.y * kTileL;
   const int rows = min(kTileL, L - l0);
-  const float* src = cdf + static_cast<size_t>(l0) * C;
-  for (int i = threadIdx.x; i < rows * C; i += kThreads) tile[i] = src[i];
-  __syncthreads();
+  const int s0 = blockIdx.x * samples_per_block;
+  const int samples = min(samples_per_block, n - s0);
+  const int tid = threadIdx.x;
 
-  const int lane = threadIdx.x % kTileL;
-  if (lane >= rows) return;
-  const int l = l0 + lane;
-  const float* row = tile + lane * C;
-  const int s_end = min(n, (blockIdx.x + 1) * kSamplesPerBlock);
-  for (int s = blockIdx.x * kSamplesPerBlock + threadIdx.x / kTileL; s < s_end;
-       s += kThreads / kTileL) {
-    const uint4 x = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(l), static_cast<uint32_t>(s), 0u, 0u),
-        make_uint2(key0, key1));
-    const float u = static_cast<float>(x.x >> 8) * (1.0f / 16777216.0f);
-    int lo = 0, hi = C;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (row[mid] <= u) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
+  // 1. stage the tile's probabilities (rows * C contiguous floats, 16-byte
+  //    loads) as doubles, in rows of odd stride
+  const float* src = probs + static_cast<size_t>(l0) * C;
+  const int total = rows * C;
+  int first_scalar = 0;
+  if (vec_loads) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    const int n4 = total >> 2;
+    for (int i = tid; i < n4; i += kThreads) {
+      const float4 v = __ldg(src4 + i);
+      int r = (4 * i) / C, c = 4 * i - r * C;
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        tile[r * stride + c] = static_cast<double>(e[j]);
+        if (++c == C) {
+          c = 0;
+          ++r;
+        }
       }
     }
-    out[static_cast<size_t>(s) * L + l] = lo >= C ? 0 : lo;
+    first_scalar = n4 << 2;
+  }
+  for (int i = first_scalar + tid; i < total; i += kThreads) {
+    const int r = i / C;
+    tile[r * stride + (i - r * C)] = static_cast<double>(__ldg(src + i));
+  }
+  for (int i = tid; i < samples * kCounts; i += kThreads) cnt[i] = 0;
+  if (class_map != nullptr) {
+    for (int i = tid; i < C; i += kThreads) map[i] = class_map[i];
+  }
+  __syncthreads();
+
+  // 2. each row's running sum in place, one thread a row, while the other
+  //    threads draw their first uniforms
+  if (tid < rows) {
+    double* row = tile + tid * stride;
+    double acc = 0.0;
+#pragma unroll 8
+    for (int c = 0; c < C; ++c) {
+      acc += row[c];
+      row[c] = acc;
+    }
+  }
+  const int quads = (rows + 3) >> 2;
+  const int items = samples * quads;
+  long long t[4];
+  int item = tid;
+  if (item < items) draw4(l0, item % quads, s0 + item / quads, key0, key1, t);
+  __syncthreads();
+
+  // 3. four searches per item, the map, one packed store, the counts
+  const bool packed = (L & 3) == 0;
+  for (; item < items; item += kThreads) {
+    const int sl = item / quads;
+    const int quad = item - sl * quads;
+    const double* row0 = tile + 4 * quad * stride;
+    int k[4] = {0, 0, 0, 0};
+    for (int b = top; b > 0; b >>= 1) {
+      // the four probes load unconditionally (clamped into the row), so
+      // their shared-memory reads are in flight together
+      long long v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = __double_as_longlong(row0[j * stride + min(k[j] + b, C) - 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k[j] + b <= C && v[j] <= t[j]) k[j] += b;
+      }
+    }
+    int code[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int cls = k[j] >= C ? 0 : k[j];
+      code[j] = class_map != nullptr ? map[cls] : cls;
+    }
+    const int l = l0 + 4 * quad;
+    Code* dst = codes + static_cast<size_t>(s0 + sl) * L + l;
+    if (packed) {
+      *reinterpret_cast<typename Pack4<Code>::type*>(dst) = Pack4<Code>::make(code);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (l + j < L) {
+        if (!packed) dst[j] = static_cast<Code>(code[j]);
+        if (code[j] < kCounts) atomicAdd(&cnt[sl * kCounts + code[j]], 1);
+      }
+    }
+    const int next = item + kThreads;
+    if (next < items) draw4(l0, next % quads, s0 + next / quads, key0, key1, t);
+  }
+  __syncthreads();
+
+  // 4. flush: one 64-bit atomic per (sample, pair of codes) that this block
+  //    saw. A sample's row of 20 int32 counts is 80 bytes, so pairs are
+  //    8-byte aligned; a count stays below 2^31, so no carry crosses a pair.
+  unsigned long long* dst =
+      reinterpret_cast<unsigned long long*>(counts + static_cast<size_t>(s0) * kCounts);
+  for (int i = tid; i < samples * kCounts / 2; i += kThreads) {
+    const unsigned int lo = cnt[2 * i], hi = cnt[2 * i + 1];
+    if (lo | hi) atomicAdd(dst + i, (static_cast<unsigned long long>(hi) << 32) | lo);
   }
 }
 
 }  // namespace
 
-// cdf: (L, C) float32, contiguous, rows non-decreasing, C <= 384 so that the
-// tile fits the 48 KB a block gets without raising its shared-memory limit.
-// out: (n, L) int32. Launches on `stream` and allocates nothing. Returns
+// Shared memory of a block for C classes: the tile of running sums (double,
+// odd row stride), the counts of kMaxSamples samples and the class map. The
+// wrapper refuses a C for which this passes the 48 KB a block gets without
+// raising its limit (C <= 341; the served heads have 20 and 338 classes).
+extern "C" int sample_inverse_cdf_smem_bytes(int C) {
+  return kTileL * (C | 1) * 8 + kMaxSamples * kCounts * 4 + C;
+}
+
+// probs: (L, C) float32, contiguous, rows of non-negative values.
+// class_map: (C,) uint8 codes on the device, or null.
+// codes: (n, L) uint8, or uint16 when code_bytes == 2. counts: (n, 20) int32.
+// Zeroes counts, then launches one kernel, both on `stream`; allocates
+// nothing. num_sms: the device's SM count, to size the grid. Returns
 // cudaGetLastError().
-extern "C" int sample_inverse_cdf(const void* cdf, void* out, int L, int C,
-                                  int n, unsigned int key0, unsigned int key1,
-                                  void* stream) {
-  const size_t smem = static_cast<size_t>(kTileL) * C * sizeof(float);
-  const dim3 grid((n + kSamplesPerBlock - 1) / kSamplesPerBlock,
-                  (L + kTileL - 1) / kTileL);
-  sample_inverse_cdf_kernel<<<grid, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cdf), static_cast<int32_t*>(out), L, C, n,
-      key0, key1);
+extern "C" int sample_inverse_cdf(const void* probs, const void* class_map,
+                                  void* codes, void* counts, int L, int C, int n,
+                                  int code_bytes, unsigned int key0,
+                                  unsigned int key1, int num_sms, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(counts, 0, static_cast<size_t>(n) * kCounts * sizeof(int32_t), st);
+  const int tiles = (L + kTileL - 1) / kTileL;
+  // samples a block: enough blocks for every SM, within [kMin, kMax]
+  const int want_chunks = (num_sms + tiles - 1) / tiles;
+  int per_block = (n + want_chunks - 1) / want_chunks;
+  per_block = per_block < kMinSamples ? kMinSamples : per_block;
+  per_block = per_block > kMaxSamples ? kMaxSamples : per_block;
+  const dim3 grid((n + per_block - 1) / per_block, tiles);
+  int top = 1;
+  while (2 * top <= C) top *= 2;
+  const bool vec = reinterpret_cast<uintptr_t>(probs) % 16 == 0;
+  const size_t smem = sample_inverse_cdf_smem_bytes(C);
+  if (code_bytes == 1) {
+    sample_inverse_cdf_kernel<uint8_t><<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(probs), static_cast<const uint8_t*>(class_map),
+        static_cast<uint8_t*>(codes), static_cast<int32_t*>(counts), L, C, C | 1,
+        top, n, per_block, vec, key0, key1);
+  } else {
+    sample_inverse_cdf_kernel<uint16_t><<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(probs), static_cast<const uint8_t*>(class_map),
+        static_cast<uint16_t*>(codes), static_cast<int32_t*>(counts), L, C, C | 1,
+        top, n, per_block, vec, key0, key1);
+  }
   return static_cast<int>(cudaGetLastError());
 }

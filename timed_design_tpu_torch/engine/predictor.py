@@ -29,7 +29,14 @@ from ..models import (
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA device. The port runs on the card; the CPU only when the
+    caller names it (``device="cpu"``), never as a silent fallback."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on an NVIDIA GPU; pass device='cpu' "
+            "(--device cpu on the command line) to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 class Predictor:
@@ -180,9 +187,8 @@ def predict_structure(
 ):
     """PDB -> frames -> probabilities, voxelizer and CNN back to back on the
     device. Returns (probs (R, n_classes), FrameAtoms)."""
-    from timed_design_tpu.structure import Structure, load_pdb
-
     from ..models import MODEL_REGISTRY
+    from ..structure import Structure, load_pdb
     from ..voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
 
     if not isinstance(structure_or_path, Structure):

@@ -12,10 +12,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from timed_design_tpu.constants import AA1, compress_rotamer_probs
-from timed_design_tpu.structure import Structure, load_pdb
-
+from ..constants import AA1, compress_rotamer_probs
 from ..models import MODEL_REGISTRY
+from ..structure import Structure, load_pdb
 from ..voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
 from .predictor import Predictor, _resolve_model
 

@@ -2,8 +2,10 @@
 
 The port of ``timed_design_tpu/sample/metrics.py``. All four metrics are
 functions of the per-class residue counts, so a batch of sampled sequences
-reduces to a (B, 20) count matrix (one masked one-hot sum) and every metric
-is (B, 20) arithmetic on the device. Henderson–Hasselbalch charge with the
+reduces to a (B, 20) count matrix and every metric is (B, 20) arithmetic on
+the device. On the serving path the counts come from the sampling kernel
+(``ops.sample.sample_inverse_cdf``); ``counts_from_codes`` is the masked
+one-hot sum for codes from elsewhere. Henderson–Hasselbalch charge with the
 EMBOSS pKa set; the two termini are two more titratable groups, counted once
 per sequence.
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from timed_design_tpu.constants import (
+from ..constants import (
     AA1_TO_INT,
     EXT280_ARR,
     MW_ARR,

@@ -1,12 +1,13 @@
 """Monte-Carlo sequence sampling on the device.
 
-The port of ``apply_temperature``, ``sample_class_indices``,
-``sample_sequences_with_metrics`` and ``sample_structure``
-(timed_design_tpu/sample/sampler.py). Draws go through
-``ops.sample.sample_class_indices``: on a CUDA device that is the
-``sample_inverse_cdf`` kernel at every length, on the CPU its plain version
-on the same Philox uniforms. Draws are a pure function of (seed, shape).
-``sample_all_structures`` (the ``td-sample`` path) is not ported yet.
+The port of ``apply_temperature``, ``sample_sequences_with_metrics`` and
+``sample_structure`` (timed_design_tpu/sample/sampler.py). From the
+tempered probabilities to per-sample codes and residue counts is one call of
+``ops.sample.sample_inverse_cdf``: on a CUDA device one launch of its kernel
+(CDF, draws, rotamer -> amino-acid map and counts) at every length, on the
+CPU its plain version on the same Philox uniforms. Draws are a pure
+function of (seed, shape). ``sample_all_structures`` (the ``td-sample``
+path) is not ported yet.
 """
 from __future__ import annotations
 
@@ -15,10 +16,10 @@ import functools
 import numpy as np
 import torch
 
-from timed_design_tpu.constants import AA1, ROTAMER_TO_AA
-
-from ..ops.sample import sample_class_indices
-from .metrics import batched_metrics_from_counts, counts_from_codes
+from ..constants import AA1, ROTAMER_TO_AA
+from ..engine.predictor import default_device
+from ..ops.sample import sample_inverse_cdf
+from .metrics import batched_metrics_from_counts
 
 _AA_ASCII = np.frombuffer("".join(AA1).encode("ascii"), np.uint8)
 _METRICS = ("charge", "isoelectric_point", "molecular_weight", "molar_extinction_280")
@@ -26,8 +27,8 @@ _METRICS = ("charge", "isoelectric_point", "molecular_weight", "molar_extinction
 
 @functools.lru_cache(maxsize=None)
 def _rotamer_to_aa(device: torch.device) -> torch.Tensor:
-    """The (338,) rotamer -> amino-acid table on ``device``, copied once."""
-    return torch.as_tensor(ROTAMER_TO_AA, dtype=torch.int32, device=device)
+    """The (338,) uint8 rotamer -> amino-acid table on ``device``, copied once."""
+    return torch.as_tensor(ROTAMER_TO_AA.astype(np.uint8), device=device)
 
 
 def apply_temperature(probs: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
@@ -48,18 +49,15 @@ def sample_sequences_with_metrics(
     n_samples: int,
     seed: int,
     rotamer_mode: bool = False,
-    mask: torch.Tensor | None = None,
     ph: float = 7.4,
 ):
     """Draws + rotamer->residue collapse + metrics, on ``probs``' device.
 
-    Returns (codes (n_samples, L) amino-acid indices, dict of (n_samples,)
-    metrics). ``mask``: (L,) 1.0 for real residues."""
-    idx = sample_class_indices(probs, n_samples, seed)
-    if rotamer_mode:
-        idx = _rotamer_to_aa(idx.device)[idx.long()]
-    counts = counts_from_codes(idx, None if mask is None else mask[None, :])
-    return idx, batched_metrics_from_counts(counts, ph=ph)
+    ``probs``: (L, C) float32 tensor. Returns (codes (n_samples, L) uint8
+    amino-acid indices, dict of (n_samples,) metrics)."""
+    class_map = _rotamer_to_aa(probs.device) if rotamer_mode else None
+    codes, counts = sample_inverse_cdf(probs, n_samples, seed, class_map)
+    return codes, batched_metrics_from_counts(counts.float(), ph=ph)
 
 
 def sample_structure(
@@ -73,12 +71,14 @@ def sample_structure(
     """Sample one structure -> [(seq, charge, pI, MW, ext), ...].
 
     ``probs``: (L, C) numpy array or tensor; sampling runs on ``device``
-    (default: the tensor's own device, the CPU for numpy)."""
+    (default: a tensor's own device; for numpy, the CUDA device)."""
+    if device is None and not isinstance(probs, torch.Tensor):
+        device = default_device()
     p = torch.as_tensor(probs, dtype=torch.float32, device=device)
     if temperature != 1.0:
         p = apply_temperature(p, temperature)
     codes, metrics = sample_sequences_with_metrics(p, n_samples, seed, rotamer_mode)
-    ascii_rows = _AA_ASCII[codes.to(torch.uint8).cpu().numpy()]
+    ascii_rows = _AA_ASCII[codes.cpu().numpy()]
     m = torch.stack([metrics[k] for k in _METRICS], dim=1).cpu().numpy()
     return [
         (ascii_rows[i].tobytes().decode("ascii"), *map(float, m[i]))

@@ -1,9 +1,8 @@
 """Residue frame construction: local bases, CB imputation, atom arrays.
 
-Host numpy code, the same as ``timed_design_tpu/voxel/frames.py``, kept here
-because that package's ``voxel`` imports JAX on import. Its tables and PDB
-parser come from the numpy-only ``timed_design_tpu.constants`` and
-``timed_design_tpu.structure``.
+Host numpy code, the same as ``timed_design_tpu/voxel/frames.py``. Its
+tables and PDB structures are the port's own copies (``..constants``,
+``..structure``).
 
 Framework-native replacement for aposteriori's `make_frame_dataset` geometry
 (reference README.md:84-96, design_utils/utils.py:247): each residue gets a
@@ -31,10 +30,8 @@ import dataclasses
 
 import numpy as np
 
-from timed_design_tpu.constants import AA3_TO_AA1, VDW_RADII
-from timed_design_tpu.structure.pdb import Structure
-from timed_design_tpu.structure.properties import convert_seq_to_property
-
+from ..constants import AA3_TO_AA1, VDW_RADII
+from ..structure import Structure, convert_seq_to_property
 from .codec import Codec
 
 # Imputed CB offset in frame coordinates (reference utils.py:247).

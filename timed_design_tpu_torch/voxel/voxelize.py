@@ -22,9 +22,11 @@ def voxelize_frame_atoms(
     frame_edge_length: float = 21.0,
     gaussian: bool = True,
     chunk: int | None = None,
-    device: torch.device | str = "cpu",
+    *,
+    device: torch.device | str,
 ) -> torch.Tensor:
-    """Voxelize one structure on ``device``; returns float32 frames there.
+    """Voxelize one structure on ``device`` (named by the caller: there is
+    no default); returns float32 frames there.
 
     The atom and frame arrays cross to the device as one float32 buffer:
     one copy (and one wait on the device's stream) per structure."""
