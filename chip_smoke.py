@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds every CUDA kernel of the serving path from ``timed_design_tpu_torch/
 csrc``, checks each kernel against its plain PyTorch version run on a CPU
 copy of the same inputs at the shapes the path gives it, and times it: host-
-inclusive per call (CUDA events), device time per call (torch.profiler),
-its bound, one PyTorch library call computing the same function, and the
-plain version on the card. Then it starts the design server in-process on
+inclusive per call (CUDA events), device time per call (a CUDA graph of
+the calls), its bound, one PyTorch library call computing the same
+function, and the plain version on the card. Then it starts the design server in-process on
 the full-width TIMED_rotamer model (random weights from a fixed seed,
 bfloat16, batch 512) and sends it real requests. It counts the kernel
 launches made while serving, and fails if a kernel of the path was not
@@ -72,9 +72,10 @@ def time_ms(fn, reps: int = 20) -> float:
 
 def device_events(fn, cpu: bool = False) -> list:
     """The device events (kernels, copies, sets) that one call of ``fn``
-    leaves in a torch.profiler trace. The profiler now and then returns a
-    trace without device events; such a trace is taken again, up to four
-    times, and an empty list means all four came back empty."""
+    leaves in a torch.profiler trace; the profiles below read them. The
+    profiler now and then returns a trace without device events: such a
+    trace is taken again, up to four times, and an empty list means that all
+    four came back empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -91,8 +92,8 @@ def device_events(fn, cpu: bool = False) -> list:
 
 
 def graph_ms(fn, reps: int = 20) -> float:
-    """Device time per call from CUDA events around replays of a CUDA graph
-    of ``reps`` calls of ``fn`` (no host time between the calls)."""
+    """Device time per call: CUDA events around replays of a CUDA graph of
+    ``reps`` calls of ``fn``, so no host time sits between the calls."""
     import torch
 
     side = torch.cuda.Stream()
@@ -115,38 +116,22 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / (5 * reps)
 
 
-def device_ms(fn, reps: int = 20, match: str | None = None) -> float:
-    """Device time per call: the summed durations of the device events that
-    ``reps`` calls of ``fn`` leave in a torch.profiler trace, only those
-    whose name holds ``match`` if given. Where the profiler returns no
-    device events, the time of a CUDA graph of the calls, all included."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    events = device_events(lambda: [fn() for _ in range(reps)])
-    if not events:
-        log("device time: the profiler returned no device events; "
-            "timing a CUDA graph of the calls instead")
-        return graph_ms(fn, reps)
-    spans = [e.time_range.end - e.time_range.start for e in events
-             if match is None or match in e.name]
-    assert spans, f"the profiler saw no device event named {match}"
-    return sum(spans) / reps / 1e3
-
-
 # The card's peaks for the bound: HBM3 at 3.35 TB/s; 32-bit integer
 # operations at 132 SMs x 64 INT32 lanes x 1.98 GHz (boost) = 16.7 T/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-PHILOX_OPS = 100  # 10 rounds of 2 mul.lo, 2 mul.hi, 4 xor, 2 key adds
+# The least integer work of one Philox4x32-10 block: 10 rounds of two
+# 32x32 -> 64-bit products (four multiply halves) and two three-input XORs
+# (one LOP3 each). The key schedule depends only on the seed, the same for
+# every draw, so it is not counted.
+PHILOX_OPS = 60
 
 
 def bound(L: int, C: int, n: int, other_bytes: int) -> tuple[float, str]:
     """Least time (ms) for n*L draws from (L, C) float32 probabilities: the
     probabilities and ``other_bytes`` (outputs, a class map) moved once over
-    the memory rate, or a Philox block and ceil(log2(C+1)) compares per draw
-    over the integer rate, whichever is longer."""
+    the memory rate, or a Philox block (PHILOX_OPS) and ceil(log2(C+1))
+    compares per draw over the integer rate, whichever is longer."""
     t_bytes = (L * C * 4 + other_bytes) / HBM_BYTES_PER_S
     t_ops = n * L * (PHILOX_OPS + math.ceil(math.log2(C + 1))) / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -192,12 +177,13 @@ def check_sampling_kernel() -> dict:
     with a class map and without. Then, at each shape, with the map the
     serving path gives it (the rotamer table at C = 338, none at C = 20):
     (a) the host-inclusive time per call, CUDA events around 20 back-to-back
-    calls; (b) the device time per call, from torch.profiler (the kernel
-    and the zeroing of the counts); (c) the bound and its share; (d) one
-    library call, torch.searchsorted(cdf, u.T, right=True), given the device
-    CDF and the uniforms (the count of entries <= u; the port never calls
-    it); (e) the plain version's device time on the card, given the
-    uniforms. Last, statistics, a half-mass row and determinism."""
+    calls; (b) the device time per call (the zeroing of the counts and the
+    kernel), from a CUDA graph of 20 calls; (c) the bound and its share;
+    (d) one library call, torch.searchsorted(cdf, u.T, right=True), given
+    the device CDF and the uniforms (the count of entries <= u; the port
+    never calls it); (e) the plain version's device time on the card, given
+    the uniforms. (d) and (e) are timed as (b). Last, statistics, a
+    half-mass row and determinism."""
     import numpy as np
     import torch
 
@@ -233,24 +219,22 @@ def check_sampling_kernel() -> dict:
             return sample_inverse_cdf(probs, n, SEED, smap)
 
         host_ms = time_ms(kernel)
-        ms = device_ms(kernel)
-        kernel_only_ms = device_ms(kernel, match="sample_inverse_cdf")
+        ms = graph_ms(kernel)
         cdf = torch.cumsum(probs, -1)
         u = u_cpu.to(dev)
         ut = u.T.contiguous()
-        library_ms = device_ms(lambda: torch.searchsorted(cdf, ut, right=True))
-        plain_ms = device_ms(lambda: sample_codes_plain(probs, u, smap))
+        library_ms = graph_ms(lambda: torch.searchsorted(cdf, ut, right=True))
+        plain_ms = graph_ms(lambda: sample_codes_plain(probs, u, smap))
         code_bytes = 1 if smap is not None or C <= 256 else 2
         bound_ms, bound_by = bound(L, C, n, n * L * code_bytes + n * N_COUNTED * 4
                                    + (C if smap is not None else 0))
         shapes.append({"L": L, "C": C, "n": n, "map": smap is not None,
                        "equal_to_plain": equal, "host_ms": host_ms, "ms": ms,
-                       "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
+                       "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                        "bound_share": bound_ms / ms})
         log(f"sample_inverse_cdf L={L} C={C} n={n} map={smap is not None}: (a) host-inclusive "
-            f"{host_ms:.4f} ms/call; (b) device {ms * 1e3:.2f} us/call (kernel alone "
-            f"{kernel_only_ms * 1e3:.2f} us); (c) bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+            f"{host_ms:.4f} ms/call; (b) device {ms * 1e3:.2f} us/call; (c) bound {bound_ms * 1e3:.3f} us ({bound_by}), "
             f"share {bound_ms / ms:.3f}; (d) searchsorted {library_ms * 1e3:.2f} us (given the "
             f"CDF and the uniforms); (e) plain {plain_ms * 1e3:.2f} us (given the uniforms)")
         assert equal, f"kernel disagrees with its plain version at {(L, C, n)}"
@@ -341,6 +325,9 @@ def profile_request(designer, pdb: str, reps: int = 10) -> None:
 
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in device_events(timed_request, cpu=True))
+    if not dev:
+        log("profile: one request: the profiler returned no device events; not measured")
+        return
     wall_us = wall[-1]
     busy, end, by_name = 0.0, float("-inf"), {}
     for a, b, name in dev:
@@ -353,7 +340,6 @@ def profile_request(designer, pdb: str, reps: int = 10) -> None:
         f"{kernels} kernels, {len(dev) - kernels} copies/sets")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"profile:   {us / 1e3:7.3f} ms  {name[:90]}")
-    assert dev, "the profiler saw no device activity"
 
 
 def profile_sampling(session, reps: int = 10) -> None:
@@ -378,7 +364,9 @@ def profile_sampling(session, reps: int = 10) -> None:
         walls.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     dev = device_events(stage, cpu=True)
-    assert dev, "the profiler saw no device activity"
+    if not dev:
+        log("profile sampling: the profiler returned no device events; not measured")
+        return
     names: dict[str, list[float]] = {}
     for e in dev:
         names.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)

@@ -27,9 +27,10 @@
 // 100 samples) latency alone -- 118 KB in, 16 KB out and 7.6k draws are far
 // below what one launch costs -- so the answer there is to do the whole
 // stage in one launch where there were about nine. At (4096, 338, 64)
-// memory (5.5 MB of probabilities, ~1.7 us at 3.35 TB/s) and the integer
-// work of 262k Philox blocks (~1.7 us at 16.7 T int32 op/s) would tie. What
-// holds it above both is latency inside a block, in three phases:
+// memory bounds it (5.5 MB of probabilities, ~1.7 us at 3.35 TB/s), above
+// the integer work of 262k Philox blocks and searches (~69 operations a
+// draw, ~1.1 us at 16.7 T int32 op/s). What holds it above both is latency
+// inside a block, in three phases:
 //   - the tile's load: one round trip to L2 or HBM;
 //   - the row scan: bit-exactness with the CPU's cumsum rules out a parallel
 //     scan, so a row is a chain of C dependent float64 adds. The tile holds
