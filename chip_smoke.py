@@ -5,19 +5,27 @@ plain versions.
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
-builds every CUDA kernel of the serving path from ``timed_design_tpu_torch/
-csrc``, checks each kernel against its plain PyTorch version run on a CPU
-copy of the same inputs at the shapes the path gives it, and times it: host-
-inclusive per call (CUDA events), device time per call (a CUDA graph of
-the calls), its bound, one PyTorch library call computing the same
-function, and the plain version on the card. Then it starts the design server in-process on
-the full-width TIMED_rotamer model (random weights from a fixed seed,
-bfloat16, batch 512) and sends it real requests. It counts the kernel
-launches made while serving, and fails if a kernel of the path was not
-launched, disagrees with its plain version, or a response is wrong. Last, it
-profiles one warm request (stage medians, device busy time and idle share,
-the kernels that take the most device time) and the sampling stage alone
-(every device operation it runs).
+builds every CUDA kernel of the port's paths from ``timed_design_tpu_torch/
+csrc``, checks each kernel entry against its plain PyTorch version run on a
+CPU copy of the same inputs at the shapes the paths give it, and times it:
+host-inclusive per call (CUDA events), device time per call (a CUDA graph
+of the calls), its bound, one PyTorch library call computing the same
+function, and the plain version on the card. Then it drives each path with
+the launch counts set to 0 just before and read just after, and fails if a
+kernel of the path was not launched, disagrees with its plain version, or
+an output is wrong:
+  - ``td-serve``: the design server in-process on the full-width
+    TIMED_rotamer model (random weights from a fixed seed, bfloat16, batch
+    512) and real requests; then one warm request profiled (stage medians,
+    device busy time and idle share, the kernels that take the most device
+    time) and the sampling stage alone (every device operation it runs);
+  - ``td-sample``: a prediction CSV and a datasetmap made by the port's own
+    full-width TIMED_rotamer session (1ubq and a 760-residue multichain),
+    sampled in-process by ``main_sample`` (one batched launch per call) and
+    once by ``python -m timed_design_tpu_torch.cli.sample``;
+  - ProDCoNN, DenseNet and DenseCPD at registry widths: float32 on the card
+    against the CPU, bfloat16 against float32, and one ``/design`` with
+    samples each from a server of all three.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -42,6 +50,11 @@ UBQ = ROOT / "tests" / "testing_files" / "1ubq.pdb1.gz"
 # (76-residue and 760-residue designs with a 338-class head, 100 samples).
 SHAPES = [(76, 338, 100), (760, 338, 100), (76, 338, 1000), (1024, 20, 256), (4096, 338, 64)]
 SEED = 20261016
+# The single entry's recorded device time per call at (76, 338, 100) and
+# (4096, 338, 64) before the batched entry shared its kernel, the highest of
+# four runs (PERF.md, section 6): the single entry is printed against it.
+RECORDED_US = {(76, 338, 100): 8.32, (4096, 338, 64): 13.69}
+FAMILIES = ("ProDCoNN", "DenseNet", "DenseCPD")
 
 
 def log(msg: str) -> None:
@@ -237,6 +250,10 @@ def check_sampling_kernel() -> dict:
             f"{host_ms:.4f} ms/call; (b) device {ms * 1e3:.2f} us/call; (c) bound {bound_ms * 1e3:.3f} us ({bound_by}), "
             f"share {bound_ms / ms:.3f}; (d) searchsorted {library_ms * 1e3:.2f} us (given the "
             f"CDF and the uniforms); (e) plain {plain_ms * 1e3:.2f} us (given the uniforms)")
+        if (L, C, n) in RECORDED_US:
+            ratio = ms * 1e3 / RECORDED_US[(L, C, n)]
+            log(f"sample_inverse_cdf L={L} C={C} n={n}: device time / the recorded "
+                f"{RECORDED_US[(L, C, n)]} us = {ratio:.3f} (within 10%: {ratio <= 1.1})")
         assert equal, f"kernel disagrees with its plain version at {(L, C, n)}"
 
     # distribution: 1e6 draws from [0.5, 0.3, 0.2, 0, ...]
@@ -262,6 +279,101 @@ def check_sampling_kernel() -> dict:
     assert all(map(torch.equal, a, b)) and not torch.equal(a[0], c[0])
     log("sample_inverse_cdf: statistics, half-mass and determinism checks passed")
     return {"shapes": shapes, "max_abs_err": max_err}
+
+
+def batch_lengths() -> list[list[int]]:
+    """The batched entry's check batches: five lengths from 1 to 760, three
+    short ones, and a sweep of 59 structures of 50-400 residues."""
+    import numpy as np
+
+    sweep = np.random.default_rng(SEED).integers(50, 401, 59).tolist()
+    return [[76, 129, 1, 760, 33], [25, 40, 33], sweep]
+
+
+def check_batched_kernel() -> dict:
+    """sample_inverse_cdf_batched against sample_codes_plain_batched run on
+    a CPU copy: codes and counts equal on every batch (338 classes with the
+    rotamer map and n = 100; 20 classes, no map, n = 256); B = 1 equal to
+    the single entry bit for bit. For the 59-structure sweep: (a) the host-
+    inclusive time per call (offsets copied from the host each call); (b)
+    the device time per call, a CUDA graph of 20 calls given device
+    offsets; (c) the bound with the packed sizes; (d) torch.searchsorted on
+    the packed CDF and the uniforms; (e) the plain version on the card; (f)
+    59 single-entry calls, one per structure, host-inclusive and as a graph."""
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.ops.sample import (
+        N_COUNTED,
+        philox_uniforms_batched,
+        sample_codes_plain_batched,
+        sample_inverse_cdf,
+        sample_inverse_cdf_batched,
+    )
+
+    dev = torch.device("cuda")
+    equal, max_err = True, 0
+    for i, (lengths, C, n) in enumerate(zip(batch_lengths(), (338, 20, 338), (100, 256, 100))):
+        offsets = np.concatenate([[0], np.cumsum(lengths)])
+        total = int(offsets[-1])
+        probs_cpu = torch.from_numpy(random_probs(total, C, 100 + i))
+        cmap = class_map(C) if C == 338 else None
+        codes, counts = sample_inverse_cdf_batched(probs_cpu.to(dev), offsets, n, SEED,
+                                                   None if cmap is None else cmap.to(dev))
+        u_cpu = torch.from_numpy(philox_uniforms_batched(SEED, n, offsets))
+        want_codes, want_counts = sample_codes_plain_batched(probs_cpu, offsets, u_cpu, cmap)
+        torch.cuda.synchronize()
+        assert codes.shape == (n, total) and counts.shape == (len(lengths), n, N_COUNTED)
+        err = max(int((codes.cpu().long() - want_codes.long()).abs().max()),
+                  int((counts.cpu() - want_counts).abs().max()))
+        max_err, equal = max(max_err, err), equal and err == 0
+        log(f"sample_inverse_cdf_batched B={len(lengths)} sum L={total} C={C} n={n} "
+            f"map={cmap is not None}: codes and counts equal to the plain version on the CPU: "
+            f"{err == 0}")
+    # B = 1 is the single entry, with and without a map
+    probs = torch.from_numpy(random_probs(76, 338, 0)).to(dev)
+    for cmap in (None, class_map(338).to(dev)):
+        a = sample_inverse_cdf_batched(probs, [0, 76], 100, SEED, cmap)
+        b = sample_inverse_cdf(probs, 100, SEED, cmap)
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1][0], b[1])
+        log(f"sample_inverse_cdf_batched B=1 (76, 338, 100) map={cmap is not None}: equal to "
+            f"the single entry bit for bit: {same}")
+        equal &= same
+
+    lengths = batch_lengths()[2]
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    B, total, C, n = len(lengths), int(offsets[-1]), 338, 100
+    probs = torch.from_numpy(random_probs(total, C, 102)).to(dev)
+    smap = class_map(C).to(dev)
+    dev_offsets = torch.from_numpy(offsets.astype(np.int32)).to(dev)
+    host_ms = time_ms(lambda: sample_inverse_cdf_batched(probs, offsets, n, SEED, smap))
+    ms = graph_ms(lambda: sample_inverse_cdf_batched(probs, dev_offsets, n, SEED, smap))
+    u = torch.from_numpy(philox_uniforms_batched(SEED, n, offsets)).to(dev)
+    cdf, ut = torch.cumsum(probs, -1), u.T.contiguous()
+    library_ms = graph_ms(lambda: torch.searchsorted(cdf, ut, right=True))
+    plain_ms = graph_ms(lambda: sample_codes_plain_batched(probs, offsets, u, smap))
+    slices = [probs[a:e] for a, e in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+
+    def singles():
+        for p in slices:
+            sample_inverse_cdf(p, n, SEED, smap)
+
+    singles_host_ms = time_ms(singles, reps=5)
+    singles_ms = graph_ms(singles, reps=5)
+    bound_ms, bound_by = bound(total, C, n, n * total + B * n * N_COUNTED * 4 + C
+                               + (B + 1) * 4)
+    log(f"sample_inverse_cdf_batched B={B} sum L={total} C={C} n={n} map=True: (a) "
+        f"host-inclusive {host_ms:.4f} ms/call; (b) device {ms * 1e3:.2f} us/call; (c) bound "
+        f"{bound_ms * 1e3:.3f} us ({bound_by}), share {bound_ms / ms:.3f}; (d) searchsorted "
+        f"{library_ms * 1e3:.2f} us (given the packed CDF and the uniforms); (e) plain "
+        f"{plain_ms * 1e3:.2f} us (given the uniforms); (f) {B} single-entry calls: "
+        f"host-inclusive {singles_host_ms:.4f} ms, device {singles_ms * 1e3:.2f} us")
+    assert equal, "the batched entry disagrees with its plain version"
+    return {"shape": [B, total, C, n], "map": True, "equal_to_plain": equal,
+            "max_abs_err": max_err, "host_ms": host_ms, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms, "singles_ms": singles_ms,
+            "singles_host_ms": singles_host_ms}
 
 
 def multichain_pdb(text: str, copies: int = 10) -> str:
@@ -383,7 +495,7 @@ def check_serving() -> dict:
     import torch
 
     from timed_design_tpu_torch.cli.serve import build_designers, build_parser, make_server
-    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
     from timed_design_tpu_torch.sample.metrics import sequence_metrics
 
     args = build_parser().parse_args([
@@ -401,7 +513,7 @@ def check_serving() -> dict:
     pdb = gzip.decompress(UBQ.read_bytes()).decode()
     lat: dict[str, list[float]] = {}
     try:
-        sample_inverse_cdf.launches = 0
+        sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
         assert health["status"] == "ok" and health["device"].startswith("cuda")
@@ -419,6 +531,7 @@ def check_serving() -> dict:
             conc = list(pool.map(lambda _: post(url + "/design", req), range(8)))
         lat["design_1ubq_n100_8_concurrent"] = [dt for _, _, dt in conc]
         launches = sample_inverse_cdf.launches
+        launches_batched = sample_inverse_cdf_batched.launches
         profile_request(d, pdb)
         profile_sampling(d.session)
     finally:
@@ -447,6 +560,7 @@ def check_serving() -> dict:
         f"largest coalesced group = {packed} requests")
     assert launches >= 12, "the serving path did not go through the kernel"
     assert packed >= 2, "concurrent requests were not coalesced"
+    assert launches_batched == 0
     split = {"design_1ubq_n100": bodies, "design_760res_n100": [big],
              "design_1ubq_n100_8_concurrent": [b for _, b, _ in conc]}
     for k, v in lat.items():
@@ -457,9 +571,10 @@ def check_serving() -> dict:
     return {"launches": launches}
 
 
-def check_reference() -> None:
-    """The whole design path on the card against the same model on the CPU
-    in float32 (1ubq): probabilities within 1e-4."""
+def check_reference(name: str, n_classes: int) -> dict:
+    """The whole design path of registry model ``name`` on the card against
+    the same model on the CPU in float32 (1ubq): probabilities within 1e-4;
+    then bfloat16 against float32 on the card."""
     import copy
 
     import numpy as np
@@ -467,23 +582,200 @@ def check_reference() -> None:
 
     from timed_design_tpu_torch.engine import DesignSession
 
-    gpu = DesignSession("TIMED_rotamer", compute_dtype="float32", batch_size=128,
+    gpu = DesignSession(name, compute_dtype="float32", batch_size=128,
                         allow_random_weights=True, device="cuda")
     model = gpu.predictor.model
-    cpu = DesignSession(copy.deepcopy(model).cpu(), codec="CNOCACB", batch_size=128,
+    cpu = DesignSession(copy.deepcopy(model).cpu(), codec="CNOCACB", batch_size=80,
                         device="cpu")
     want, _ = cpu.design(UBQ)
     got, _ = gpu.design(UBQ)
     err = float(np.abs(got - want).max())
     agree = float((got.argmax(1) == want.argmax(1)).mean())
-    log(f"reference: 1ubq float32 GPU vs CPU max |dp| = {err:.3g}, argmax agreement {agree:.3f}")
-    assert got.shape == (76, 338) and np.isfinite(got).all() and err <= 1e-4
+    log(f"reference {name}: 1ubq float32 GPU vs CPU max |dp| = {err:.3g}, argmax agreement "
+        f"{agree:.3f}")
+    assert got.shape == (76, n_classes) and np.isfinite(got).all() and err <= 1e-4
     half = copy.deepcopy(model)
     half.compute_dtype = torch.bfloat16
     pb, _ = DesignSession(half, codec="CNOCACB", batch_size=128, device="cuda").design(UBQ)
-    log(f"reference: 1ubq bfloat16 vs float32 on the GPU max |dp| = "
-        f"{float(np.abs(pb - got).max()):.3g}, argmax agreement "
-        f"{float((pb.argmax(1) == got.argmax(1)).mean()):.3f}")
+    bf16 = {"max_abs_dp": float(np.abs(pb - got).max()),
+            "argmax_agreement": float((pb.argmax(1) == got.argmax(1)).mean())}
+    log(f"reference {name}: 1ubq bfloat16 vs float32 on the GPU max |dp| = "
+        f"{bf16['max_abs_dp']:.3g}, argmax agreement {bf16['argmax_agreement']:.3f}")
+    return {"f32_gpu_vs_cpu_max_abs_dp": err, "bf16": bf16}
+
+
+def check_families() -> dict:
+    """ProDCoNN, DenseNet and DenseCPD at registry widths: each held to the
+    CPU in float32 and its bfloat16 compared (check_reference); then one
+    server of all three (random weights, bfloat16, batch 512) answers two
+    /design requests with 100 samples per family, the first of each
+    including cuDNN's warm-up."""
+    import numpy as np
+
+    from timed_design_tpu_torch.cli.serve import build_designers, build_parser, make_server
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.sample.metrics import sequence_metrics
+
+    out = {name: check_reference(name, 20) for name in FAMILIES}
+    argv = ["--allow-random-weights", "--batch_size", "512"]
+    for name in FAMILIES:
+        argv += ["--model", name]
+    designers = build_designers(build_parser().parse_args(argv))
+    server = make_server(designers[FAMILIES[0]], "127.0.0.1", 0, FAMILIES[0],
+                         extra_designers={k: designers[k] for k in FAMILIES[1:]})
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/design"
+    pdb = gzip.decompress(UBQ.read_bytes()).decode()
+    try:
+        sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+        for name in FAMILIES:
+            lat = []
+            for _ in range(2):
+                status, body, dt = post(url, {"pdb": pdb, "n_samples": 100, "temperature": 0.2,
+                                              "seed": 7, "model": name})
+                assert status == 200 and body["model"] == name and body["n_residues"] == 76
+                p = np.array(body["probabilities"])
+                assert p.shape == (76, 20) and np.isfinite(p).all()
+                assert np.abs(p.sum(1) - 1).max() <= 1e-3 and len(body["samples"]) == 100
+                for smp in body["samples"][:5]:
+                    got = (smp["charge"], smp["isoelectric_point"], smp["molecular_weight"],
+                           smp["molar_extinction"])
+                    assert len(smp["sequence"]) == 76
+                    assert np.allclose(got, sequence_metrics(smp["sequence"]), rtol=1e-4, atol=0.05)
+                lat.append(dt)
+            out[name]["design_1ubq_n100_s"] = lat
+            log(f"serving {name} (bf16, batch 512): /design 1ubq n=100 latency "
+                + ", ".join(f"{x * 1e3:.1f} ms" for x in lat) + f" ({stages(body['timings_s'])})")
+        launches = sample_inverse_cdf.launches
+        assert sample_inverse_cdf_batched.launches == 0
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+        for d in designers.values():
+            d.close()
+    log(f"serving the families: launches of sample_inverse_cdf = {launches}")
+    assert launches == 2 * len(FAMILIES), "a family's /design did not go through the kernel"
+    return {"launches": launches, "per_family": out}
+
+
+def check_td_sample() -> dict:
+    """td-sample on the card. The port's full-width TIMED_rotamer session
+    (random weights, bfloat16, batch 512) designs 1ubq and the 760-residue
+    multichain; the port's writers save the rotamer probability CSV, the
+    argmax fasta and the per-residue datasetmap. ``main_sample`` then runs
+    in-process twice (T = 0.5, 100 samples, seed 42), with exactly one
+    batched launch per call; the files, every sequence's length and every
+    sample's metrics (recomputed from its sequence) are checked. Last, the
+    same run as a subprocess of the CLI, whose fasta must equal the
+    in-process one byte for byte."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from timed_design_tpu_torch.constants import ROTAMER_CATEGORIES
+    from timed_design_tpu_torch.engine import DesignSession
+    from timed_design_tpu_torch.io import (
+        DatasetMap,
+        extract_sequences,
+        load_datasetmap,
+        load_prediction_matrix,
+        save_datasetmap,
+        save_dict_to_fasta,
+        save_prediction_csv,
+    )
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.sample import (
+        SampleConfig,
+        apply_temperature,
+        main_sample,
+        sample_all_structures,
+        sequence_metrics,
+    )
+    from timed_design_tpu_torch.structure import parse_pdb_string
+
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_td_sample_", dir=ROOT))
+    cwd = Path.cwd()
+    try:
+        session = DesignSession("TIMED_rotamer", batch_size=512, allow_random_weights=True,
+                                device="cuda")
+        text = gzip.decompress(UBQ.read_bytes()).decode()
+        entries, argmax = [], {}
+        for name, pdb in (("1ubq", text), ("mult", multichain_pdb(text))):
+            probs, fa = session.design(parse_pdb_string(pdb, name=name)[0])
+            save_prediction_csv(probs, "TIMED_rotamer", work, rotamer=True)
+            entries += [(name, c, r, lab) for c, r, lab in zip(fa.chain_ids, fa.residue_ids,
+                                                                 fa.labels)]
+            argmax[name] = session.design_sequence(parse_pdb_string(pdb, name=name)[0])
+        save_dict_to_fasta(argmax, "TIMED_rotamer", work)
+        dmap = save_datasetmap(DatasetMap(entries=entries), work / "datasetmap.txt")
+        lengths: dict[str, int] = {}
+        for pdb, chain, *_ in entries:
+            lengths[pdb + chain] = lengths.get(pdb + chain, 0) + 1
+        cfg = SampleConfig(work / "TIMED_rotamer_rot.csv", dmap, sample_n=100, temperature=0.5,
+                           support_old_datasetmap=True, device="cuda")
+        os.chdir(work)
+        walls = []
+        sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+        for _ in range(2):
+            t0 = time.perf_counter()
+            paths = main_sample(cfg)
+            walls.append(time.perf_counter() - t0)
+        launches = sample_inverse_cdf_batched.launches
+        assert sample_inverse_cdf.launches == 0
+        assert launches == 2, f"{launches} batched launches for 2 main_sample calls"
+        # where a call's time goes: the CSV read, and the sampling alone
+        t0 = time.perf_counter()
+        matrix = load_prediction_matrix(cfg.path_to_pred_matrix)
+        split = {"read_csv": time.perf_counter() - t0}
+        decoded = extract_sequences(load_datasetmap(dmap, is_old=True),
+                                    apply_temperature(matrix, 0.5), ROTAMER_CATEGORIES)
+        t0 = time.perf_counter()
+        sample_all_structures(decoded.pdb_to_probability, 100, rotamer_mode=True, device="cuda")
+        split["sample_all_structures"] = time.perf_counter() - t0
+        assert [Path(p).name for p in paths] == [
+            f"TIMED_rotamer_rot_temp_0.5_n_100_1ubqA{e}" for e in (".json", ".fasta", "_metrics.csv")]
+        samples = json.loads((work / paths[0]).read_text())
+        assert {k: len(v) for k, v in samples.items()} == {k: 100 for k in lengths}
+        worst = 0.0
+        for pdb, rows in samples.items():
+            for seq, *metrics in rows:
+                assert len(seq) == lengths[pdb] and set(seq) <= set("ACDEFGHIKLMNPQRSTVWY")
+                want = sequence_metrics(seq)
+                worst = max(worst, float(np.max(np.abs(np.subtract(metrics, want))
+                                                / np.maximum(np.abs(want), 1.0))))
+        assert worst <= 1e-4, f"metrics differ from the sequences' by {worst:.3g}"
+        csv_lines = (work / paths[2]).read_text().splitlines()
+        assert len(csv_lines) == 1 + 100 * len(lengths)
+        fasta = (work / paths[1]).read_bytes()
+        for p in paths:
+            os.replace(work / p, work / f"inproc_{p}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "timed_design_tpu_torch.cli.sample",
+             "--path_to_pred_matrix", str(cfg.path_to_pred_matrix),
+             "--path_to_datasetmap", str(dmap), "--support_old_datasetmap",
+             "--sample_n", "100", "--temperature", "0.5"],
+            cwd=work, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        cli_wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert (work / paths[1]).read_bytes() == fasta, "the CLI drew other sequences"
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"td-sample: {len(lengths)} structures ({sum(lengths.values())} residues), 100 samples "
+        f"each, T=0.5: main_sample wall {walls[0]:.3f} s (first), {walls[1]:.3f} s "
+        f"(of which reading the CSV {split['read_csv']:.3f} s, sample_all_structures "
+        f"{split['sample_all_structures']:.4f} s); "
+        f"{launches} batched launches for 2 calls; metrics agree with the sequences to "
+        f"{worst:.2g}; CLI subprocess rc 0 in {cli_wall:.2f} s, same fasta")
+    return {"launches": launches, "main_sample_wall_s": walls, "split_s": split,
+            "cli_wall_s": cli_wall, "structures": len(lengths)}
 
 
 def main() -> int:
@@ -494,28 +786,38 @@ def main() -> int:
         return 1
     import timed_design_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, GPU: {gpu_name_and_power()}")
     build_kernels(["sample_inverse_cdf"])
     kernel = check_sampling_kernel()
-    check_reference()
+    batched = check_batched_kernel()
+    check_reference("TIMED_rotamer", 338)
     serving = check_serving()
+    td_sample = check_td_sample()
+    families = check_families()
+    log(json.dumps({"families": families["per_family"], "td_sample": td_sample}))
     main_shape = kernel["shapes"][0]
+    launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
+                "families": families["launches"]}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",
         "source": "timed_design_tpu_torch/csrc/sample_inverse_cdf.cu",
         "replaces": "timed_design_tpu/ops/pallas_sample.py:88",
-        "launches": serving["launches"],
-        "max_abs_err": kernel["max_abs_err"],
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(kernel["max_abs_err"], batched["max_abs_err"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
-        "shape":[main_shape["L"], main_shape["C"], main_shape["n"]],
+        "shape": [main_shape["L"], main_shape["C"], main_shape["n"]],
         "equal_to_plain": all(s["equal_to_plain"] for s in kernel["shapes"]),
         "per_shape": kernel["shapes"],
+        "batched": batched,
     }]}), flush=True)
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

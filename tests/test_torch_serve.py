@@ -313,3 +313,42 @@ def test_serve_needs_a_card_unless_told_cpu(ckpts):
     assert build_parser().parse_args(["--model", model]).device == "cuda"
     designers = build_designers(args)
     assert designers["TIMED"].session.device == torch.device("cpu")
+
+
+def test_design_with_a_prodconn_checkpoint_matches_jax(tmp_path, pdb_text, ubq_pdb_gz):
+    """``/design`` served from a ProDCoNN checkpoint written by the JAX
+    trainer, on the CPU in float32: the JAX package's probabilities to 1e-5
+    (the payload rounds to 6 decimals), its argmax sequence, and samples."""
+    import jax
+
+    from timed_design_tpu.engine import DesignSession as JaxSession
+    from timed_design_tpu.models import prodconn
+    from timed_design_tpu.train.train import save_checkpoint
+
+    from timed_design_tpu_torch.cli.serve import build_designers, build_parser, make_server
+
+    v = prodconn().init(jax.random.key(4), np.zeros((1, 21, 21, 21, 5), np.float32))
+    ckpt = tmp_path / "prodconn.npz"
+    save_checkpoint(types.SimpleNamespace(params=v["params"], batch_stats={}), ckpt)
+    want, _ = JaxSession(f"ProDCoNN@{ckpt}", compute_dtype="float32", batch_size=80).design(
+        ubq_pdb_gz)
+    args = build_parser().parse_args([
+        "--model", f"ProDCoNN@{ckpt}", "--compute_dtype", "float32", "--batch_size", "80",
+        "--device", "cpu", "--no-coalesce"])
+    designers = build_designers(args)
+    server = make_server(designers["ProDCoNN"], "127.0.0.1", 0, "ProDCoNN")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        status, body = _post(f"http://127.0.0.1:{server.server_address[1]}/design", json.dumps(
+            {"pdb": pdb_text, "n_samples": 4, "seed": 2}).encode())
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+    assert status == 200 and body["model"] == "ProDCoNN" and body["rotamer_head"] is False
+    got = np.array(body["probabilities"])
+    assert got.shape == (76, 20)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
+    assert body["sequence"] == "".join(np.array(list("ACDEFGHIKLMNPQRSTVWY"))[np.asarray(want).argmax(1)])
+    assert len(body["samples"]) == 4 and all(len(s["sequence"]) == 76 for s in body["samples"])

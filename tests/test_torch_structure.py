@@ -2,8 +2,9 @@
 JAX package's tables and PDB parser, held to the originals; and the import
 boundary (the port imports nothing of ``timed_design_tpu``).
 
-Tables compare exactly; parsed structures compare field by field, exactly,
-with the native C++ scanner and with the Python scanner on both sides.
+Tables compare exactly; parsed structures compare field by field, exactly:
+the port's C++ scanner and its Python scanner, each against the JAX
+package's Python scanner.
 """
 import ast
 import dataclasses
@@ -21,7 +22,7 @@ TABLES = [
     "STANDARD_AMINO_ACIDS", "UNCOMMON_RESIDUE_DICT", "VDW_RADII", "POLARITY_ZIMMERMAN",
     "RESIDUE_CHARGE", "RESIDUE_MW", "RESIDUE_EXT_280", "MW_ARR", "EXT280_ARR",
     "PKA_POSITIVE", "PKA_NEGATIVE", "PKA_SIDECHAIN_ARR", "PKA_SIGN_ARR", "WATER_MASS",
-    "N_ROTAMER_CLASSES", "ROTAMER_TO_AA",
+    "N_ROTAMER_CLASSES", "ROTAMER_TO_AA", "ROTAMER_CATEGORIES",
 ]
 
 
@@ -93,17 +94,24 @@ def _assert_same(got, want, where="structure"):
 
 @pytest.fixture(params=["native", "python"])
 def scanner(request, monkeypatch):
-    """Both packages' parsers on one scanner: the C++ one, or (with the
-    native binding patched out) the Python one."""
+    """The port's parser on its C++ scanner or (with its native binding
+    patched out) on its Python one, against the JAX package's parser on its
+    Python scanner in both cases.
+
+    The JAX package's C++ scanner is never loaded here: its loader rebuilds
+    ``native/libpdbscan.so`` in place (``g++ -o``) whenever the library is
+    older than its source, and test workers doing so at once load a library
+    that another is rewriting. ``tests/test_native.py`` holds the JAX
+    package's two scanners equal."""
     import timed_design_tpu.structure._native as jax_native
 
     import timed_design_tpu_torch.structure._native as native
 
+    monkeypatch.setattr(jax_native, "scan_pdb_native", lambda text: None)
     if request.param == "native":
-        assert native.native_available() and jax_native.native_available()
+        assert native.native_available()
     else:
         monkeypatch.setattr(native, "scan_pdb_native", lambda text: None)
-        monkeypatch.setattr(jax_native, "scan_pdb_native", lambda text: None)
     return request.param
 
 
@@ -125,10 +133,14 @@ def test_parse_pdb_string_equals_jax_package(case, scanner, ubq_pdb_gz):
         _assert_same(parse_pdb_string(text, name=case, all_states=all_states), want)
 
 
-def test_load_pdb_and_backbone_equal_jax_package(ubq_pdb_gz):
+def test_load_pdb_and_backbone_equal_jax_package(ubq_pdb_gz, monkeypatch):
+    import timed_design_tpu.structure._native as jax_native
     from timed_design_tpu.structure import load_pdb as jax_load
 
     from timed_design_tpu_torch.structure import load_pdb
+
+    # the JAX package's Python scanner, as in ``scanner`` above
+    monkeypatch.setattr(jax_native, "scan_pdb_native", lambda text: None)
 
     got, want = load_pdb(ubq_pdb_gz), jax_load(ubq_pdb_gz)
     _assert_same(got, want)
@@ -156,7 +168,8 @@ PORT_FILES = sorted(str(p.relative_to(REPO))
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_port_imports_nothing_of_the_jax_package(path):
     """Every import in the port's modules and in chip_smoke.py, read with
-    ast: none names timed_design_tpu or JAX."""
+    ast: none names timed_design_tpu, JAX or h5py (the card's machine has
+    none of them)."""
     tree = ast.parse((REPO / path).read_text(), filename=path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -167,5 +180,5 @@ def test_port_imports_nothing_of_the_jax_package(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("timed_design_tpu", "jax", "jaxlib", "flax"), (
+            assert top not in ("timed_design_tpu", "jax", "jaxlib", "flax", "h5py"), (
                 f"{path}:{node.lineno} imports {name}")

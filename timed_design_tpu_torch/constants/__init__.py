@@ -25,4 +25,9 @@ from .amino_acids import (  # noqa: F401
     VDW_RADII,
     WATER_MASS,
 )
-from .rotamers import N_ROTAMER_CLASSES, ROTAMER_TO_AA, compress_rotamer_probs  # noqa: F401
+from .rotamers import (  # noqa: F401
+    N_ROTAMER_CLASSES,
+    ROTAMER_CATEGORIES,
+    ROTAMER_TO_AA,
+    compress_rotamer_probs,
+)

@@ -1,8 +1,10 @@
-"""The 338-class rotamer codec: the port's copy of ``ROTAMER_TO_AA`` and
-``compress_rotamer_probs`` from ``timed_design_tpu/constants/rotamers.py``.
+"""The 338-class rotamer codec: the port's copy of ``ROTAMER_CATEGORIES``,
+``ROTAMER_TO_AA`` and ``compress_rotamer_probs`` from
+``timed_design_tpu/constants/rotamers.py``.
 
 Per amino acid in AA1 order, one class for every chi-bin combination
-``product([1, 2, 3], repeat=n_chi)``, and a single class for ALA and GLY.
+``product([1, 2, 3], repeat=n_chi)`` (e.g. ``LYS_1232``), and a single
+``<RES>_0`` class for ALA and GLY.
 """
 from __future__ import annotations
 
@@ -14,12 +16,16 @@ from .amino_acids import AA1, AA3, CHI_COUNTS
 
 N_ROTAMER_CLASSES = 338
 
-# (338,) int32: rotamer class -> amino-acid class
+# the class names, and (338,) int32: rotamer class -> amino-acid class
+ROTAMER_CATEGORIES = [
+    f"{res}_{''.join(map(str, combo)) or '0'}"
+    for res in AA3 for combo in product([1, 2, 3], repeat=CHI_COUNTS[res])
+]
 ROTAMER_TO_AA = np.array(
     [i for i, res in enumerate(AA3) for _ in product([1, 2, 3], repeat=CHI_COUNTS[res])],
     np.int32,
 )
-assert ROTAMER_TO_AA.shape == (N_ROTAMER_CLASSES,)
+assert len(ROTAMER_CATEGORIES) == ROTAMER_TO_AA.shape[0] == N_ROTAMER_CLASSES
 
 _ROTAMER_TO_AA_ONEHOT = np.zeros((N_ROTAMER_CLASSES, len(AA1)), dtype=np.float32)
 _ROTAMER_TO_AA_ONEHOT[np.arange(N_ROTAMER_CLASSES), ROTAMER_TO_AA] = 1.0

@@ -11,8 +11,10 @@
 //   - CDF: each row's running sum accumulated in float64, in order, and each
 //     prefix rounded to float32: what torch.cumsum of float32 gives on the
 //     CPU, so the plain version there gives the same CDF bit for bit.
-//   - Draw (sample s, position l): Philox4x32-10 keyed on the 64-bit seed,
-//     counter (l, s, 0, 0); u = (x0 >> 8) * 2^-24. The class is the count of
+//   - Draw (sample s, position l of structure b): Philox4x32-10 keyed on the
+//     64-bit seed, counter (l, s, b, 0); u = (x0 >> 8) * 2^-24. The single
+//     entry is structure 0, so the batched entry's structure 0 draws what it
+//     draws. The class is the count of
 //     CDF entries <= u, and 0 where that count reaches C (u past the row's
 //     mass), as the reference's argmax form gives.
 //   - Code: class_map[class] when a map is given (the 338 -> 20 rotamer
@@ -58,9 +60,22 @@
 //     four reads are in flight together; then the map, one 4-byte store of
 //     four codes, and four shared-memory count atomics.
 //
-// The plain PyTorch version is sample_codes_plain in
-// timed_design_tpu_torch/ops/sample.py, run on philox_uniforms; it gives the
-// same codes and counts.
+// The batched entry (td-sample's many structures in one launch) takes every
+// structure's rows packed with no padding, (sum L, C), and the (B + 1,)
+// offsets where each starts. A tile never crosses a structure's boundary, so
+// the one-thread-a-row scan stays as it is. Tile t of the grid belongs to the
+// structure b with T_b <= t < T_{b+1}, T_b = b + ceil(offsets[b] / kTileL):
+// T rises by at least ceil(L_b / kTileL) from b to b + 1, so every tile of b
+// has its own t, and the at most B values of t that fall in the gaps exit
+// at once. A block finds its b by checking every b once, spread over its
+// threads. Codes go to the columns offsets[b]: of an (n, sum L) matrix,
+// counts to row b * n + s of a (B * n, 20) one; the four-code store is used
+// where the structure's start, its length and sum L are multiples of 4.
+//
+// The plain PyTorch versions are sample_codes_plain and
+// sample_codes_plain_batched in timed_design_tpu_torch/ops/sample.py, run on
+// philox_uniforms and philox_uniforms_batched; they give the same codes and
+// counts.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -73,9 +88,9 @@ constexpr int kMinSamples = 32;   // samples per block, at least ...
 constexpr int kMaxSamples = 64;   // ... and at most (the counts' shared tile)
 constexpr int kCounts = 20;       // counted codes: the 20 amino acids
 
-__device__ __forceinline__ uint32_t philox_x0(uint32_t l, uint32_t s, uint32_t k0,
-                                              uint32_t k1) {
-  uint32_t c0 = l, c1 = s, c2 = 0u, c3 = 0u;
+__device__ __forceinline__ uint32_t philox_x0(uint32_t l, uint32_t s, uint32_t b,
+                                              uint32_t k0, uint32_t k1) {
+  uint32_t c0 = l, c1 = s, c2 = b, c3 = 0u;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
     if (r > 0) {
@@ -114,13 +129,15 @@ __device__ __forceinline__ long long draw_threshold(uint32_t x) {
   return (e == 23 && (k & 1u)) ? m_bits - 1 : m_bits;
 }
 
-// Thresholds of the draws of positions l0 + 4 * quad + j of sample s.
-__device__ __forceinline__ void draw4(int l0, int quad, int s, uint32_t k0,
+// Thresholds of the draws of positions l0 + 4 * quad + j of sample s of
+// structure b.
+__device__ __forceinline__ void draw4(int l0, int quad, int s, int b, uint32_t k0,
                                       uint32_t k1, long long t[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     t[j] = draw_threshold(philox_x0(static_cast<uint32_t>(l0 + 4 * quad + j),
-                                    static_cast<uint32_t>(s), k0, k1));
+                                    static_cast<uint32_t>(s), static_cast<uint32_t>(b),
+                                    k0, k1));
   }
 }
 
@@ -141,33 +158,55 @@ struct Pack4<uint16_t> {
   }
 };
 
-template <typename Code>
+// kBatched: probs holds B structures packed at `offsets`, and `total` is
+// their summed length; else one structure of length `total`.
+template <typename Code, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 sample_inverse_cdf_kernel(const float* __restrict__ probs,
+                          const int32_t* __restrict__ offsets, int B,
                           const uint8_t* __restrict__ class_map,
                           Code* __restrict__ codes, int32_t* __restrict__ counts,
-                          int L, int C, int stride, int top, int n,
-                          int samples_per_block, bool vec_loads, uint32_t key0,
-                          uint32_t key1) {
+                          int total, int C, int stride, int top, int n,
+                          int samples_per_block, uint32_t key0, uint32_t key1) {
   extern __shared__ __align__(16) unsigned char smem[];
   double* tile = reinterpret_cast<double*>(smem);                    // [rows][stride]
   int* cnt = reinterpret_cast<int*>(tile + kTileL * stride);         // [samples][20]
   uint8_t* map = reinterpret_cast<uint8_t*>(cnt + kMaxSamples * kCounts);  // [C]
 
-  const int l0 = blockIdx.y * kTileL;
+  // the block's structure b, where its rows start, its length L, and the
+  // tile's first position l0 within it
+  int b = 0, start = 0, L = total, l0 = blockIdx.y * kTileL;
+  const int tid = threadIdx.x;
+  if constexpr (kBatched) {
+    __shared__ int found[3];
+    const int t = blockIdx.y;
+    for (int i = tid; i < B; i += kThreads) {
+      const int o0 = __ldg(offsets + i), o1 = __ldg(offsets + i + 1);
+      if (i + (o0 + kTileL - 1) / kTileL <= t && t < i + 1 + (o1 + kTileL - 1) / kTileL) {
+        found[0] = i;
+        found[1] = o0;
+        found[2] = o1 - o0;
+      }
+    }
+    __syncthreads();
+    b = found[0];
+    start = found[1];
+    L = found[2];
+    l0 = (t - b - (start + kTileL - 1) / kTileL) * kTileL;
+    if (l0 >= L) return;  // a tile between two structures: the whole block
+  }
   const int rows = min(kTileL, L - l0);
   const int s0 = blockIdx.x * samples_per_block;
   const int samples = min(samples_per_block, n - s0);
-  const int tid = threadIdx.x;
 
   // 1. stage the tile's probabilities (rows * C contiguous floats, 16-byte
-  //    loads) as doubles, in rows of odd stride
-  const float* src = probs + static_cast<size_t>(l0) * C;
-  const int total = rows * C;
+  //    loads where the span is aligned) as doubles, in rows of odd stride
+  const float* src = probs + static_cast<size_t>(start + l0) * C;
+  const int total_in = rows * C;
   int first_scalar = 0;
-  if (vec_loads) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     const float4* src4 = reinterpret_cast<const float4*>(src);
-    const int n4 = total >> 2;
+    const int n4 = total_in >> 2;
     for (int i = tid; i < n4; i += kThreads) {
       const float4 v = __ldg(src4 + i);
       int r = (4 * i) / C, c = 4 * i - r * C;
@@ -183,7 +222,7 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
     }
     first_scalar = n4 << 2;
   }
-  for (int i = first_scalar + tid; i < total; i += kThreads) {
+  for (int i = first_scalar + tid; i < total_in; i += kThreads) {
     const int r = i / C;
     tile[r * stride + (i - r * C)] = static_cast<double>(__ldg(src + i));
   }
@@ -208,27 +247,28 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
   const int items = samples * quads;
   long long t[4];
   int item = tid;
-  if (item < items) draw4(l0, item % quads, s0 + item / quads, key0, key1, t);
+  if (item < items) draw4(l0, item % quads, s0 + item / quads, b, key0, key1, t);
   __syncthreads();
 
-  // 3. four searches per item, the map, one packed store, the counts
-  const bool packed = (L & 3) == 0;
+  // 3. four searches per item, the map, one packed store (where every
+  //    quad's four codes are the structure's and 4-aligned), the counts
+  const bool packed = ((total | start | L) & 3) == 0;
   for (; item < items; item += kThreads) {
     const int sl = item / quads;
     const int quad = item - sl * quads;
     const double* row0 = tile + 4 * quad * stride;
     int k[4] = {0, 0, 0, 0};
-    for (int b = top; b > 0; b >>= 1) {
+    for (int step = top; step > 0; step >>= 1) {
       // the four probes load unconditionally (clamped into the row), so
       // their shared-memory reads are in flight together
       long long v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        v[j] = __double_as_longlong(row0[j * stride + min(k[j] + b, C) - 1]);
+        v[j] = __double_as_longlong(row0[j * stride + min(k[j] + step, C) - 1]);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (k[j] + b <= C && v[j] <= t[j]) k[j] += b;
+        if (k[j] + step <= C && v[j] <= t[j]) k[j] += step;
       }
     }
     int code[4];
@@ -238,7 +278,7 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
       code[j] = class_map != nullptr ? map[cls] : cls;
     }
     const int l = l0 + 4 * quad;
-    Code* dst = codes + static_cast<size_t>(s0 + sl) * L + l;
+    Code* dst = codes + static_cast<size_t>(s0 + sl) * total + start + l;
     if (packed) {
       *reinterpret_cast<typename Pack4<Code>::type*>(dst) = Pack4<Code>::make(code);
     }
@@ -250,15 +290,15 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
       }
     }
     const int next = item + kThreads;
-    if (next < items) draw4(l0, next % quads, s0 + next / quads, key0, key1, t);
+    if (next < items) draw4(l0, next % quads, s0 + next / quads, b, key0, key1, t);
   }
   __syncthreads();
 
   // 4. flush: one 64-bit atomic per (sample, pair of codes) that this block
   //    saw. A sample's row of 20 int32 counts is 80 bytes, so pairs are
   //    8-byte aligned; a count stays below 2^31, so no carry crosses a pair.
-  unsigned long long* dst =
-      reinterpret_cast<unsigned long long*>(counts + static_cast<size_t>(s0) * kCounts);
+  unsigned long long* dst = reinterpret_cast<unsigned long long*>(
+      counts + (static_cast<size_t>(b) * n + s0) * kCounts);
   for (int i = tid; i < samples * kCounts / 2; i += kThreads) {
     const unsigned int lo = cnt[2 * i], hi = cnt[2 * i + 1];
     if (lo | hi) atomicAdd(dst + i, (static_cast<unsigned long long>(hi) << 32) | lo);
@@ -268,12 +308,49 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
 }  // namespace
 
 // Shared memory of a block for C classes: the tile of running sums (double,
-// odd row stride), the counts of kMaxSamples samples and the class map. The
-// wrapper refuses a C for which this passes the 48 KB a block gets without
-// raising its limit (C <= 341; the served heads have 20 and 338 classes).
+// odd row stride), the counts of kMaxSamples samples, the class map, and
+// (batched) the block's structure. The wrapper refuses a C for which this
+// passes the 48 KB a block gets without raising its limit (C <= 341; the
+// served heads have 20 and 338 classes).
 extern "C" int sample_inverse_cdf_smem_bytes(int C) {
-  return kTileL * (C | 1) * 8 + kMaxSamples * kCounts * 4 + C;
+  return kTileL * (C | 1) * 8 + kMaxSamples * kCounts * 4 + C + 3 * 4;
 }
+
+namespace {
+
+// Zeroes the B * n rows of counts, then one launch over `tiles` tiles.
+template <bool kBatched>
+int launch(const void* probs, const void* offsets, int B, const void* class_map,
+           void* codes, void* counts, int total, int tiles, int C, int n,
+           int code_bytes, unsigned int key0, unsigned int key1, int num_sms,
+           cudaStream_t st) {
+  cudaMemsetAsync(counts, 0, static_cast<size_t>(B) * n * kCounts * sizeof(int32_t), st);
+  // samples a block: enough blocks for every SM, within [kMin, kMax]
+  const int want_chunks = (num_sms + tiles - 1) / tiles;
+  int per_block = (n + want_chunks - 1) / want_chunks;
+  per_block = per_block < kMinSamples ? kMinSamples : per_block;
+  per_block = per_block > kMaxSamples ? kMaxSamples : per_block;
+  const dim3 grid((n + per_block - 1) / per_block, tiles);
+  int top = 1;
+  while (2 * top <= C) top *= 2;
+  const size_t smem = sample_inverse_cdf_smem_bytes(C);
+  const float* p = static_cast<const float*>(probs);
+  const int32_t* o = static_cast<const int32_t*>(offsets);
+  const uint8_t* m = static_cast<const uint8_t*>(class_map);
+  int32_t* k = static_cast<int32_t*>(counts);
+  if (code_bytes == 1) {
+    sample_inverse_cdf_kernel<uint8_t, kBatched><<<grid, kThreads, smem, st>>>(
+        p, o, B, m, static_cast<uint8_t*>(codes), k, total, C, C | 1, top, n, per_block,
+        key0, key1);
+  } else {
+    sample_inverse_cdf_kernel<uint16_t, kBatched><<<grid, kThreads, smem, st>>>(
+        p, o, B, m, static_cast<uint16_t*>(codes), k, total, C, C | 1, top, n, per_block,
+        key0, key1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // probs: (L, C) float32, contiguous, rows of non-negative values.
 // class_map: (C,) uint8 codes on the device, or null.
@@ -285,29 +362,23 @@ extern "C" int sample_inverse_cdf(const void* probs, const void* class_map,
                                   void* codes, void* counts, int L, int C, int n,
                                   int code_bytes, unsigned int key0,
                                   unsigned int key1, int num_sms, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(counts, 0, static_cast<size_t>(n) * kCounts * sizeof(int32_t), st);
-  const int tiles = (L + kTileL - 1) / kTileL;
-  // samples a block: enough blocks for every SM, within [kMin, kMax]
-  const int want_chunks = (num_sms + tiles - 1) / tiles;
-  int per_block = (n + want_chunks - 1) / want_chunks;
-  per_block = per_block < kMinSamples ? kMinSamples : per_block;
-  per_block = per_block > kMaxSamples ? kMaxSamples : per_block;
-  const dim3 grid((n + per_block - 1) / per_block, tiles);
-  int top = 1;
-  while (2 * top <= C) top *= 2;
-  const bool vec = reinterpret_cast<uintptr_t>(probs) % 16 == 0;
-  const size_t smem = sample_inverse_cdf_smem_bytes(C);
-  if (code_bytes == 1) {
-    sample_inverse_cdf_kernel<uint8_t><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(probs), static_cast<const uint8_t*>(class_map),
-        static_cast<uint8_t*>(codes), static_cast<int32_t*>(counts), L, C, C | 1,
-        top, n, per_block, vec, key0, key1);
-  } else {
-    sample_inverse_cdf_kernel<uint16_t><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(probs), static_cast<const uint8_t*>(class_map),
-        static_cast<uint16_t*>(codes), static_cast<int32_t*>(counts), L, C, C | 1,
-        top, n, per_block, vec, key0, key1);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(probs, nullptr, 1, class_map, codes, counts, L,
+                       (L + kTileL - 1) / kTileL, C, n, code_bytes, key0, key1, num_sms,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// probs: (total, C) float32, B structures' rows packed with no padding.
+// offsets: (B + 1,) int32 on the device, offsets[0] = 0, non-decreasing,
+// offsets[B] = total. codes: (n, total), structure b at columns
+// offsets[b]:offsets[b + 1]. counts: (B * n, 20) int32, structure b's
+// samples at rows b * n + s. Otherwise as sample_inverse_cdf: one memset,
+// one launch, nothing allocated.
+extern "C" int sample_inverse_cdf_batched(const void* probs, const void* offsets, int B,
+                                          const void* class_map, void* codes,
+                                          void* counts, int total, int C, int n,
+                                          int code_bytes, unsigned int key0,
+                                          unsigned int key1, int num_sms, void* stream) {
+  return launch<true>(probs, offsets, B, class_map, codes, counts, total,
+                      B + (total + kTileL - 1) / kTileL, C, n, code_bytes, key0, key1,
+                      num_sms, static_cast<cudaStream_t>(stream));
 }

@@ -20,7 +20,6 @@ from torch import nn
 
 from ..models import (
     ModelSpec,
-    flax_variables_to_state_dict,
     get_model_spec,
     load_checkpoint_build_kwargs,
     load_checkpoint_params,
@@ -119,7 +118,8 @@ class Predictor:
 def _resolve_model(m, compute_dtype: torch.dtype | None = None,
                    allow_random_weights: bool = False) -> tuple[nn.Module, str]:
     """Module -> itself; "Name@ckpt.npz" -> the registry architecture with
-    the checkpoint's weights; bare registry name -> random weights, refused
+    the checkpoint's weights, converted by its family's converter
+    (``ModelSpec.convert``); bare registry name -> random weights, refused
     unless ``allow_random_weights`` (benchmarks and tests only: random
     predictions cannot be told from real ones)."""
     if isinstance(m, nn.Module):
@@ -129,7 +129,7 @@ def _resolve_model(m, compute_dtype: torch.dtype | None = None,
         name, ckpt = str(m).split("@", 1)
         spec = get_model_spec(name)
         module = spec.build(**load_checkpoint_build_kwargs(ckpt), **kw)
-        sd = flax_variables_to_state_dict(load_checkpoint_params(ckpt))
+        sd = spec.convert(load_checkpoint_params(ckpt))
         module.load_state_dict(sd)
         return module, spec.name
     spec: ModelSpec = load_model(m)

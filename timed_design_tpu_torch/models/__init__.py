@@ -1,9 +1,14 @@
-"""TIMED 3D-CNN zoo in PyTorch, its registry and weight conversion."""
+"""The 3D-CNN zoo in PyTorch (TIMED, ProDCoNN, DenseNet, DenseCPD), its
+registry and weight conversion."""
 from .convert import (  # noqa: F401
+    densenet_variables_to_state_dict,
     flax_variables_to_state_dict,
     load_checkpoint_build_kwargs,
     load_checkpoint_params,
+    prodconn_variables_to_state_dict,
 )
+from .densenet import DenseNet3D, densecpd, densenet  # noqa: F401
+from .prodconn import ProDCoNN, prodconn  # noqa: F401
 from .registry import MODEL_REGISTRY, ModelSpec, get_model_spec, load_model  # noqa: F401
 from .timed import (  # noqa: F401
     TIMED,

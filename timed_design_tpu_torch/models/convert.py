@@ -1,8 +1,12 @@
 """Weights carried across from the JAX package.
 
-``flax_variables_to_state_dict`` maps a Flax TIMED variable tree (numpy
-leaves) onto the PyTorch TIMED's ``state_dict``. The npz readers are the
-counterparts of ``load_checkpoint_params`` / ``load_checkpoint_build_kwargs``
+One converter per model family maps a Flax variable tree (numpy leaves) onto
+the PyTorch module's ``state_dict``: TIMED
+(``flax_variables_to_state_dict``), ProDCoNN and DenseNet/DenseCPD. Conv
+kernels go from DHWIO to OIDHW, Dense kernels from (in, out) to (out, in),
+BatchNorm ``scale/bias/mean/var`` to ``weight/bias/running_mean/
+running_var``. The npz readers are the counterparts of
+``load_checkpoint_params`` / ``load_checkpoint_build_kwargs``
 (timed_design_tpu/train/train.py), reimplemented because that module imports
 JAX; they read the same flat ``params/...`` and ``batch_stats/...`` files.
 """
@@ -23,32 +27,83 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _conv(sd: dict, prefix: str, node: dict) -> None:
+    sd[prefix + "weight"] = _kernel(node["kernel"])
+    sd[prefix + "bias"] = _t(node["bias"])
+
+
+def _dense(sd: dict, prefix: str, node: dict) -> None:
+    sd[prefix + "weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[prefix + "bias"] = _t(node["bias"])
+
+
+def _bn(sd: dict, prefix: str, params: dict, stats: dict) -> None:
+    sd[prefix + "weight"] = _t(params["scale"])
+    sd[prefix + "bias"] = _t(params["bias"])
+    sd[prefix + "running_mean"] = _t(stats["mean"])
+    sd[prefix + "running_var"] = _t(stats["var"])
+    sd[prefix + "num_batches_tracked"] = torch.tensor(0)
+
+
 def flax_variables_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     """Flax TIMED ``{"params", "batch_stats"}`` -> TIMED ``state_dict``.
 
     Flax names ``ConvBlock_i/Conv_0`` and ``ConvBlock_i/BatchNorm_0`` become
     ``blocks.i.conv`` and ``blocks.i.bn``; the top-level ``Conv_0`` is the
-    1x1x1 ``head``. BatchNorm ``scale/bias/mean/var`` become
-    ``weight/bias/running_mean/running_var``.
+    1x1x1 ``head``.
     """
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: dict[str, torch.Tensor] = {}
     i = 0
     while f"ConvBlock_{i}" in params:
-        conv = params[f"ConvBlock_{i}"]["Conv_0"]
-        bn = params[f"ConvBlock_{i}"]["BatchNorm_0"]
-        bs = stats[f"ConvBlock_{i}"]["BatchNorm_0"]
-        p = f"blocks.{i}."
-        sd[p + "conv.weight"] = _kernel(conv["kernel"])
-        sd[p + "conv.bias"] = _t(conv["bias"])
-        sd[p + "bn.weight"] = _t(bn["scale"])
-        sd[p + "bn.bias"] = _t(bn["bias"])
-        sd[p + "bn.running_mean"] = _t(bs["mean"])
-        sd[p + "bn.running_var"] = _t(bs["var"])
-        sd[p + "bn.num_batches_tracked"] = torch.tensor(0)
+        block = params[f"ConvBlock_{i}"]
+        _conv(sd, f"blocks.{i}.conv.", block["Conv_0"])
+        _bn(sd, f"blocks.{i}.bn.", block["BatchNorm_0"], stats[f"ConvBlock_{i}"]["BatchNorm_0"])
         i += 1
-    sd["head.weight"] = _kernel(params["Conv_0"]["kernel"])
-    sd["head.bias"] = _t(params["Conv_0"]["bias"])
+    _conv(sd, "head.", params["Conv_0"])
+    return sd
+
+
+def prodconn_variables_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """Flax ProDCoNN ``{"params"}`` -> ProDCoNN ``state_dict``: ``Conv_i``
+    becomes ``convs.i`` and ``Dense_i`` ``dense.i``. The module flattens in
+    the Flax (NDHWC) order, so ``Dense_0``'s rows stay as they are."""
+    params = variables["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for i in range(4):
+        _conv(sd, f"convs.{i}.", params[f"Conv_{i}"])
+    for i in range(2):
+        _dense(sd, f"dense.{i}.", params[f"Dense_{i}"])
+    return sd
+
+
+def densenet_variables_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
+    """Flax DenseNet3D (DenseNet, DenseCPD) -> ``DenseNet3D`` ``state_dict``.
+
+    ``Conv_0`` is the ``stem``; ``_DenseLayer_k/{BatchNorm_0, Conv_0,
+    BatchNorm_1, Conv_1}``, numbered across the blocks, become
+    ``layers.k.{bn0, conv0, bn1, conv1}``; ``_Transition_i/{BatchNorm_0,
+    Conv_0}`` become ``transitions.i.{bn, conv}``; the last ``BatchNorm_0``
+    and ``Dense_0`` are ``bn`` and ``head``.
+    """
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, "stem.", params["Conv_0"])
+    k = 0
+    while f"_DenseLayer_{k}" in params:
+        node, st = params[f"_DenseLayer_{k}"], stats[f"_DenseLayer_{k}"]
+        for j in range(2):
+            _bn(sd, f"layers.{k}.bn{j}.", node[f"BatchNorm_{j}"], st[f"BatchNorm_{j}"])
+            _conv(sd, f"layers.{k}.conv{j}.", node[f"Conv_{j}"])
+        k += 1
+    i = 0
+    while f"_Transition_{i}" in params:
+        node, st = params[f"_Transition_{i}"], stats[f"_Transition_{i}"]
+        _bn(sd, f"transitions.{i}.bn.", node["BatchNorm_0"], st["BatchNorm_0"])
+        _conv(sd, f"transitions.{i}.conv.", node["Conv_0"])
+        i += 1
+    _bn(sd, "bn.", params["BatchNorm_0"], stats["BatchNorm_0"])
+    _dense(sd, "head.", params["Dense_0"])
     return sd
 
 

@@ -1,4 +1,4 @@
-"""Building blocks of the TIMED 3D-CNN (PyTorch).
+"""Building blocks of the 3D-CNN zoo (PyTorch).
 
 The port of ``timed_design_tpu/models/layers.py``. Modules take NCDHW
 tensors; the model's public forward takes the JAX layout NDHWC and views it
@@ -27,6 +27,11 @@ class ConvBlock(nn.Module):
         x = F.conv3d(x, self.conv.weight.to(dt), self.conv.bias.to(dt), padding=1)
         x = F.elu(x)
         return self.bn(x.to(torch.float32)).to(dt)
+
+
+def cast_conv(conv: nn.Conv3d, x: torch.Tensor, padding: int = 0) -> torch.Tensor:
+    """``conv`` applied in ``x``'s dtype, its float32 parameters cast."""
+    return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=padding)
 
 
 def spatial_dropout_3d(

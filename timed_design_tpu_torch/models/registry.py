@@ -1,7 +1,7 @@
-"""Model zoo registry: name -> PyTorch constructor + default codec.
+"""Model zoo registry: name -> PyTorch constructor, default codec and the
+converter of its Flax weights.
 
-The port of ``timed_design_tpu/models/registry.py``. All eight TIMED names
-build; ProDCoNN, DenseNet and DenseCPD are listed but not ported yet, and
+The port of ``timed_design_tpu/models/registry.py``: every name builds.
 Keras ``.h5`` weights wait for the port of the Keras importer (ROADMAP,
 Queue 1).
 """
@@ -12,6 +12,13 @@ import typing as t
 from pathlib import Path
 
 from ..voxel.codec import Codec
+from .convert import (
+    densenet_variables_to_state_dict,
+    flax_variables_to_state_dict,
+    prodconn_variables_to_state_dict,
+)
+from .densenet import densecpd, densenet
+from .prodconn import prodconn
 from .timed import (
     timed,
     timed_deep,
@@ -21,16 +28,6 @@ from .timed import (
 )
 
 
-def _not_ported(name: str) -> t.Callable:
-    def build(**_kw):
-        raise NotImplementedError(
-            f"{name} is not ported to PyTorch yet (ROADMAP, Queue 1: "
-            "ProDCoNN/DenseNet/DenseCPD)"
-        )
-
-    return build
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     name: str
@@ -38,6 +35,8 @@ class ModelSpec:
     n_classes: int
     codec: str  # default input codec string
     rotamer: bool = False
+    # Flax variables {"params", "batch_stats"} -> the module's state_dict
+    convert: t.Callable = flax_variables_to_state_dict
 
     def build(self, **kw):
         kw.setdefault("in_channels", Codec.from_string(self.codec).n_channels)
@@ -59,9 +58,12 @@ MODEL_REGISTRY: dict[str, ModelSpec] = {
     "TIMED_rotamer_deep": ModelSpec(
         "TIMED_rotamer_deep", timed_rotamer_deep, 338, "CNOCACB", True
     ),
-    "ProDCoNN": ModelSpec("ProDCoNN", _not_ported("ProDCoNN"), 20, "CNOCACB"),
-    "DenseNet": ModelSpec("DenseNet", _not_ported("DenseNet"), 20, "CNOCACB"),
-    "DenseCPD": ModelSpec("DenseCPD", _not_ported("DenseCPD"), 20, "CNOCACB"),
+    "ProDCoNN": ModelSpec("ProDCoNN", prodconn, 20, "CNOCACB",
+                          convert=prodconn_variables_to_state_dict),
+    "DenseNet": ModelSpec("DenseNet", densenet, 20, "CNOCACB",
+                          convert=densenet_variables_to_state_dict),
+    "DenseCPD": ModelSpec("DenseCPD", densecpd, 20, "CNOCACB",
+                          convert=densenet_variables_to_state_dict),
 }
 
 

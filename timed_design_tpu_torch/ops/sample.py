@@ -4,13 +4,17 @@
 port of the TPU kernel ``timed_design_tpu/ops/pallas_sample.py``
 (``pallas_sample_class_indices``) fused with what consumes its indices on
 the serving path: from (L, C) probabilities to (n, L) codes and (n, 20)
-residue counts in one launch. For a CUDA tensor it launches the kernel or
-raises; for a CPU tensor it runs ``sample_codes_plain`` on the same
-uniforms (``philox_uniforms``), which gives the same codes and counts.
+residue counts in one launch. ``sample_inverse_cdf_batched`` is the same
+kernel over B structures packed with no padding, one launch for all of
+them (``td-sample``). For a CUDA tensor each launches the kernel or raises;
+for a CPU tensor it runs its plain version (``sample_codes_plain``,
+``sample_codes_plain_batched``) on the same uniforms (``philox_uniforms``,
+``philox_uniforms_batched``), which gives the same codes and counts.
 
 Uniforms: Philox4x32-10 (Salmon et al., SC'11) keyed on the 64-bit seed,
-counter ``(position, sample, 0, 0)``; the top 24 bits of the first output
-word give ``u = (x >> 8) * 2**-24``, exact in float32.
+counter ``(position, sample, structure, 0)``; the top 24 bits of the first
+output word give ``u = (x >> 8) * 2**-24``, exact in float32. The single
+entry draws as structure 0.
 """
 from __future__ import annotations
 
@@ -53,14 +57,28 @@ def philox4x32_10(counter, key) -> tuple[np.ndarray, ...]:
     return c0, c1, c2, c3
 
 
-def philox_uniforms(seed: int, n: int, L: int) -> np.ndarray:
-    """(n, L) float32 uniforms in [0, 1): the kernel's draw for (s, l)."""
+def _uniforms(seed: int, n: int, pos: np.ndarray, structure: np.ndarray) -> np.ndarray:
+    """(n, len(pos)) float32: the draw of counter (pos[j], s, structure[j], 0)."""
     s = np.arange(n, dtype=np.uint64)[:, None]
-    pos = np.arange(L, dtype=np.uint64)[None, :]
     zero = np.zeros((), np.uint64)
-    x0 = philox4x32_10((pos, s, zero, zero), _seed_key(seed))[0]
-    x0 = np.broadcast_to(x0, (n, L))
+    x0 = philox4x32_10((pos.astype(np.uint64)[None, :], s, structure.astype(np.uint64)[None, :],
+                        zero), _seed_key(seed))[0]
+    x0 = np.broadcast_to(x0, (n, pos.shape[0]))
     return (x0 >> np.uint64(8)).astype(np.float32) * np.float32(1.0 / (1 << 24))
+
+
+def philox_uniforms(seed: int, n: int, L: int, structure: int = 0) -> np.ndarray:
+    """(n, L) float32 uniforms in [0, 1): the kernel's draw for (s, l) of
+    ``structure``."""
+    return _uniforms(seed, n, np.arange(L), np.full(L, structure))
+
+
+def philox_uniforms_batched(seed: int, n: int, offsets) -> np.ndarray:
+    """(n, sum L) float32: structure b's columns ``offsets[b]:offsets[b+1]``
+    hold ``philox_uniforms(seed, n, L_b, b)``."""
+    offs = np.asarray(offsets, np.int64)
+    which = np.repeat(np.arange(offs.shape[0] - 1), np.diff(offs))
+    return _uniforms(seed, n, np.arange(offs[-1]) - offs[which], which)
 
 
 def code_dtype(C: int, class_map: torch.Tensor | None) -> torch.dtype:
@@ -95,6 +113,61 @@ def sample_codes_plain(
     return codes.to(code_dtype(probs.shape[-1], class_map)), counts
 
 
+def sample_codes_plain_batched(
+    probs: torch.Tensor, offsets, u: torch.Tensor, class_map: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batched kernel's function in plain PyTorch: ``sample_codes_plain``
+    on each structure's rows and uniforms.
+
+    ``probs``: (sum L, C) float32, B structures packed; ``offsets``: (B+1,)
+    ints where each starts; ``u``: (n, sum L) float32. Returns (codes (n,
+    sum L), structure b at columns ``offsets[b]:offsets[b+1]``; counts (B,
+    n, 20) int32).
+    """
+    offs = _host_offsets(offsets, probs.shape[0])
+    n = u.shape[0]
+    codes = torch.empty((n, probs.shape[0]), dtype=code_dtype(probs.shape[1], class_map),
+                        device=probs.device)
+    counts = torch.empty((offs.shape[0] - 1, n, N_COUNTED), dtype=torch.int32,
+                         device=probs.device)
+    for b, (a, e) in enumerate(zip(offs[:-1].tolist(), offs[1:].tolist())):
+        codes[:, a:e], counts[b] = sample_codes_plain(probs[a:e], u[:, a:e], class_map)
+    return codes, counts
+
+
+def _host_offsets(offsets, total: int) -> np.ndarray:
+    """(B+1,) int64 offsets of B structures packed in ``total`` rows,
+    checked: they start at 0, never fall, and end at ``total``."""
+    if isinstance(offsets, torch.Tensor):
+        offsets = offsets.cpu().numpy()
+    offs = np.asarray(offsets)
+    if (offs.ndim != 1 or offs.shape[0] < 1 or not np.issubdtype(offs.dtype, np.integer)
+            or offs[0] != 0 or offs[-1] != total or (np.diff(offs) < 0).any()):
+        raise ValueError(f"offsets must be (B+1,) integers from 0 to {total}, never falling; "
+                         f"got {offsets!r}")
+    return offs.astype(np.int64)
+
+
+def _check(probs: torch.Tensor, n_samples: int, class_map: torch.Tensor | None) -> int:
+    if probs.ndim != 2 or probs.dtype != torch.float32:
+        raise ValueError(f"probs must be (L, C) float32, got {tuple(probs.shape)} {probs.dtype}")
+    C = probs.shape[1]
+    n = int(n_samples)
+    if n < 0 or C < 1:
+        raise ValueError(f"need n_samples >= 0 and C >= 1, got {n}, {C}")
+    if class_map is not None and (class_map.shape != (C,) or class_map.dtype != torch.uint8
+                                  or class_map.device != probs.device):
+        raise ValueError(f"class_map must be ({C},) uint8 on {probs.device}")
+    if probs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no sampling kernel for device {probs.device}")
+    if probs.device.type == "cuda":
+        if _smem_bytes(C) > _SMEM_LIMIT:
+            raise ValueError(f"C={C} classes exceed the kernel's 48 KB shared-memory tile")
+        if n >= 2**31:
+            raise ValueError(f"n={n} exceeds the kernel's grid")
+    return n
+
+
 def sample_inverse_cdf(
     probs: torch.Tensor, n_samples: int, seed: int, class_map: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -107,39 +180,22 @@ def sample_inverse_cdf(
     launches the kernel and adds one to ``sample_inverse_cdf.launches``; on
     a CPU tensor it runs ``sample_codes_plain`` on the same uniforms.
     """
-    if probs.ndim != 2 or probs.dtype != torch.float32:
-        raise ValueError(f"probs must be (L, C) float32, got {tuple(probs.shape)} {probs.dtype}")
+    n = _check(probs, n_samples, class_map)
     L, C = probs.shape
-    n = int(n_samples)
-    if n < 0 or C < 1:
-        raise ValueError(f"need n_samples >= 0 and C >= 1, got {n}, {C}")
-    if class_map is not None and (class_map.shape != (C,) or class_map.dtype != torch.uint8
-                                  or class_map.device != probs.device):
-        raise ValueError(f"class_map must be ({C},) uint8 on {probs.device}")
     if probs.device.type == "cpu":
         u = torch.from_numpy(philox_uniforms(seed, n, L))
         return sample_codes_plain(probs, u, class_map)
-    if probs.device.type != "cuda":
-        raise ValueError(f"no sampling kernel for device {probs.device}")
-    if _smem_bytes(C) > _SMEM_LIMIT:
-        raise ValueError(f"C={C} classes exceed the kernel's 48 KB shared-memory tile")
-    if n >= 2**31 or -(-L // _TILE_L) > 65535:
-        raise ValueError(f"shape (n={n}, L={L}) exceeds the kernel's grid")
+    if -(-L // _TILE_L) > 65535:
+        raise ValueError(f"L={L} exceeds the kernel's grid")
     codes = torch.empty((n, L), dtype=code_dtype(C, class_map), device=probs.device)
     counts = torch.empty((n, N_COUNTED), dtype=torch.int32, device=probs.device)
     if n == 0 or L == 0:
         return codes, counts.zero_()
-    if not probs.is_contiguous():
-        probs = probs.contiguous()
+    probs = probs.contiguous()
     key0, key1 = _seed_key(seed)
-    dev = probs.device.index
-    if dev == torch.cuda.current_device():
-        err = _launch(dev, probs, class_map, codes, counts, key0, key1)
-    else:
-        with torch.cuda.device(dev):
-            err = _launch(dev, probs, class_map, codes, counts, key0, key1)
-    if err != 0:
-        raise RuntimeError(f"sample_inverse_cdf launch failed: CUDA error {err}")
+    _on_device(probs.device.index, lambda sms, stream: _lib().sample_inverse_cdf(
+        probs.data_ptr(), _ptr(class_map), codes.data_ptr(), counts.data_ptr(), L, C, n,
+        codes.element_size(), key0, key1, sms, stream))
     sample_inverse_cdf.launches += 1
     return codes, counts
 
@@ -147,13 +203,70 @@ def sample_inverse_cdf(
 sample_inverse_cdf.launches = 0
 
 
-def _launch(dev, probs, class_map, codes, counts, key0, key1) -> int:
-    (n, L), C = codes.shape, probs.shape[1]
-    return _lib().sample_inverse_cdf(
-        probs.data_ptr(), None if class_map is None else class_map.data_ptr(),
-        codes.data_ptr(), counts.data_ptr(), L, C, n, codes.element_size(), key0, key1,
-        _num_sms(dev), torch.cuda.current_stream().cuda_stream,
-    )
+def sample_inverse_cdf_batched(
+    probs: torch.Tensor, offsets, n_samples: int, seed: int,
+    class_map: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(codes (n_samples, sum L), counts (B, n_samples, 20) int32) drawn from
+    B structures in one launch.
+
+    ``probs``: (sum L, C) float32, every structure's rows packed with no
+    padding. ``offsets``: (B+1,) integers where each structure starts
+    (``offsets[0] = 0``, ``offsets[B] = sum L``): host values (a sequence,
+    an array, a CPU tensor), checked and copied to the device; or an int32
+    tensor already on ``probs``' device, taken as it is (the caller vouches
+    for its values). Structure b's codes are the columns
+    ``offsets[b]:offsets[b+1]``, and its draws are those of counter (l, s,
+    b, 0): structure 0 draws what ``sample_inverse_cdf`` draws. On a CUDA
+    tensor this launches the kernel once, whatever B is, and adds one to
+    ``sample_inverse_cdf_batched.launches``; on a CPU tensor it runs
+    ``sample_codes_plain_batched`` on the same uniforms.
+    """
+    n = _check(probs, n_samples, class_map)
+    total, C = probs.shape
+    if probs.device.type == "cpu":
+        offs = _host_offsets(offsets, total)
+        u = torch.from_numpy(philox_uniforms_batched(seed, n, offs))
+        return sample_codes_plain_batched(probs, offs, u, class_map)
+    if isinstance(offsets, torch.Tensor) and offsets.device == probs.device:
+        if offsets.ndim != 1 or offsets.shape[0] < 1 or offsets.dtype != torch.int32:
+            raise ValueError(f"device offsets must be (B+1,) int32, got "
+                             f"{tuple(offsets.shape)} {offsets.dtype}")
+    else:
+        offsets = torch.from_numpy(_host_offsets(offsets, total).astype(np.int32)).to(probs.device)
+    B = offsets.shape[0] - 1
+    if B + -(-total // _TILE_L) > 65535:
+        raise ValueError(f"B={B} structures of {total} rows exceed the kernel's grid")
+    codes = torch.empty((n, total), dtype=code_dtype(C, class_map), device=probs.device)
+    counts = torch.empty((B, n, N_COUNTED), dtype=torch.int32, device=probs.device)
+    if n == 0 or total == 0:
+        return codes, counts.zero_()
+    probs, offsets = probs.contiguous(), offsets.contiguous()
+    key0, key1 = _seed_key(seed)
+    _on_device(probs.device.index, lambda sms, stream: _lib().sample_inverse_cdf_batched(
+        probs.data_ptr(), offsets.data_ptr(), B, _ptr(class_map), codes.data_ptr(),
+        counts.data_ptr(), total, C, n, codes.element_size(), key0, key1, sms, stream))
+    sample_inverse_cdf_batched.launches += 1
+    return codes, counts
+
+
+sample_inverse_cdf_batched.launches = 0
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _on_device(dev: int, launch) -> None:
+    """``launch(num_sms, stream)`` with ``dev`` current; raises on a CUDA
+    error from the launch."""
+    if dev == torch.cuda.current_device():
+        err = launch(_num_sms(dev), torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(_num_sms(dev), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sample_inverse_cdf launch failed: CUDA error {err}")
 
 
 @functools.cache
@@ -176,6 +289,12 @@ def _lib() -> ctypes.CDLL:
     lib.sample_inverse_cdf.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.sample_inverse_cdf_batched.restype = ctypes.c_int
+    lib.sample_inverse_cdf_batched.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sample_inverse_cdf_smem_bytes.restype = ctypes.c_int
