@@ -254,6 +254,7 @@ def check_sampling_kernel() -> dict:
             ratio = ms * 1e3 / RECORDED_US[(L, C, n)]
             log(f"sample_inverse_cdf L={L} C={C} n={n}: device time / the recorded "
                 f"{RECORDED_US[(L, C, n)]} us = {ratio:.3f} (within 10%: {ratio <= 1.1})")
+            assert ratio <= 1.1, f"the single entry is slower than recorded at {(L, C, n)}"
         assert equal, f"kernel disagrees with its plain version at {(L, C, n)}"
 
     # distribution: 1e6 draws from [0.5, 0.3, 0.2, 0, ...]
@@ -281,30 +282,38 @@ def check_sampling_kernel() -> dict:
     return {"shapes": shapes, "max_abs_err": max_err}
 
 
-def batch_lengths() -> list[list[int]]:
-    """The batched entry's check batches: five lengths from 1 to 760, three
-    short ones, and a sweep of 59 structures of 50-400 residues."""
+def batches() -> list[tuple[list[int], int, int]]:
+    """(lengths, C, n): the batched entry's check batches. Five lengths from
+    1 to 760; three short ones; td-sample's own batch in check_td_sample
+    (1ubq and the ten chains of the multichain, 76 residues each, where
+    every start and length is a multiple of 4 and the kernel stores four
+    codes at once); last, a sweep of 59 structures of 50-400 residues drawn
+    from the script's seed."""
     import numpy as np
 
     sweep = np.random.default_rng(SEED).integers(50, 401, 59).tolist()
-    return [[76, 129, 1, 760, 33], [25, 40, 33], sweep]
+    return [([76, 129, 1, 760, 33], 338, 100), ([25, 40, 33], 20, 256),
+            ([76] * 11, 338, 100), (sweep, 338, 100)]
 
 
 def check_batched_kernel() -> dict:
     """sample_inverse_cdf_batched against sample_codes_plain_batched run on
-    a CPU copy: codes and counts equal on every batch (338 classes with the
-    rotamer map and n = 100; 20 classes, no map, n = 256); B = 1 equal to
-    the single entry bit for bit. For the 59-structure sweep: (a) the host-
-    inclusive time per call (offsets copied from the host each call); (b)
-    the device time per call, a CUDA graph of 20 calls given device
-    offsets; (c) the bound with the packed sizes; (d) torch.searchsorted on
-    the packed CDF and the uniforms; (e) the plain version on the card; (f)
-    59 single-entry calls, one per structure, host-inclusive and as a graph."""
+    a CPU copy: codes and counts equal on every batch of batches(), with a
+    class map (uint8 codes) and without (int16 codes at 338 classes); B = 1
+    equal to the single entry bit for bit. For the 59-structure sweep with
+    the rotamer map: (a) the host-inclusive time per call (offsets checked
+    and copied from the host each call); (b) the device time per call, a
+    CUDA graph of 20 launches given the checked device offsets; (c) the
+    bound with the packed sizes; (d) torch.searchsorted on the packed CDF
+    and the uniforms; (e) the plain version on the card; (f) 59 single-entry
+    calls, one per structure, host-inclusive and as a graph."""
     import numpy as np
     import torch
 
     from timed_design_tpu_torch.ops.sample import (
         N_COUNTED,
+        _host_offsets,
+        _launch_batched,
         philox_uniforms_batched,
         sample_codes_plain_batched,
         sample_inverse_cdf,
@@ -313,41 +322,41 @@ def check_batched_kernel() -> dict:
 
     dev = torch.device("cuda")
     equal, max_err = True, 0
-    for i, (lengths, C, n) in enumerate(zip(batch_lengths(), (338, 20, 338), (100, 256, 100))):
+    for i, (lengths, C, n) in enumerate(batches()):
         offsets = np.concatenate([[0], np.cumsum(lengths)])
         total = int(offsets[-1])
         probs_cpu = torch.from_numpy(random_probs(total, C, 100 + i))
-        cmap = class_map(C) if C == 338 else None
-        codes, counts = sample_inverse_cdf_batched(probs_cpu.to(dev), offsets, n, SEED,
-                                                   None if cmap is None else cmap.to(dev))
+        probs = probs_cpu.to(dev)
         u_cpu = torch.from_numpy(philox_uniforms_batched(SEED, n, offsets))
-        want_codes, want_counts = sample_codes_plain_batched(probs_cpu, offsets, u_cpu, cmap)
-        torch.cuda.synchronize()
-        assert codes.shape == (n, total) and counts.shape == (len(lengths), n, N_COUNTED)
-        err = max(int((codes.cpu().long() - want_codes.long()).abs().max()),
-                  int((counts.cpu() - want_counts).abs().max()))
-        max_err, equal = max(max_err, err), equal and err == 0
-        log(f"sample_inverse_cdf_batched B={len(lengths)} sum L={total} C={C} n={n} "
-            f"map={cmap is not None}: codes and counts equal to the plain version on the CPU: "
-            f"{err == 0}")
+        for cmap in (None, class_map(C)):
+            codes, counts = sample_inverse_cdf_batched(probs, offsets, n, SEED,
+                                                       None if cmap is None else cmap.to(dev))
+            want_codes, want_counts = sample_codes_plain_batched(probs_cpu, offsets, u_cpu, cmap)
+            torch.cuda.synchronize()
+            assert codes.shape == (n, total) and codes.dtype == want_codes.dtype
+            assert counts.shape == (len(lengths), n, N_COUNTED)
+            err = max(int((codes.cpu().long() - want_codes.long()).abs().max()),
+                      int((counts.cpu() - want_counts).abs().max()))
+            max_err, equal = max(max_err, err), equal and err == 0
+            log(f"sample_inverse_cdf_batched B={len(lengths)} sum L={total} C={C} n={n} "
+                f"map={cmap is not None} codes {codes.dtype}: codes and counts equal to the "
+                f"plain version on the CPU: {err == 0}")
     # B = 1 is the single entry, with and without a map
-    probs = torch.from_numpy(random_probs(76, 338, 0)).to(dev)
+    one = torch.from_numpy(random_probs(76, 338, 0)).to(dev)
     for cmap in (None, class_map(338).to(dev)):
-        a = sample_inverse_cdf_batched(probs, [0, 76], 100, SEED, cmap)
-        b = sample_inverse_cdf(probs, 100, SEED, cmap)
+        a = sample_inverse_cdf_batched(one, [0, 76], 100, SEED, cmap)
+        b = sample_inverse_cdf(one, 100, SEED, cmap)
         same = torch.equal(a[0], b[0]) and torch.equal(a[1][0], b[1])
         log(f"sample_inverse_cdf_batched B=1 (76, 338, 100) map={cmap is not None}: equal to "
             f"the single entry bit for bit: {same}")
         equal &= same
 
-    lengths = batch_lengths()[2]
-    offsets = np.concatenate([[0], np.cumsum(lengths)])
-    B, total, C, n = len(lengths), int(offsets[-1]), 338, 100
-    probs = torch.from_numpy(random_probs(total, C, 102)).to(dev)
+    # the timings: the loop's last batch, the sweep, with the rotamer map
+    B = len(lengths)
     smap = class_map(C).to(dev)
-    dev_offsets = torch.from_numpy(offsets.astype(np.int32)).to(dev)
+    dev_offsets = torch.from_numpy(_host_offsets(offsets, total).astype(np.int32)).to(dev)
     host_ms = time_ms(lambda: sample_inverse_cdf_batched(probs, offsets, n, SEED, smap))
-    ms = graph_ms(lambda: sample_inverse_cdf_batched(probs, dev_offsets, n, SEED, smap))
+    ms = graph_ms(lambda: _launch_batched(probs, dev_offsets, n, SEED, smap))
     u = torch.from_numpy(philox_uniforms_batched(SEED, n, offsets)).to(dev)
     cdf, ut = torch.cumsum(probs, -1), u.T.contiguous()
     library_ms = graph_ms(lambda: torch.searchsorted(cdf, ut, right=True))
@@ -667,9 +676,12 @@ def check_td_sample() -> dict:
     argmax fasta and the per-residue datasetmap. ``main_sample`` then runs
     in-process twice (T = 0.5, 100 samples, seed 42), with exactly one
     batched launch per call; the files, every sequence's length and every
-    sample's metrics (recomputed from its sequence) are checked. Last, the
+    sample's metrics (recomputed from its sequence) are checked. Then the
     same run as a subprocess of the CLI, whose fasta must equal the
-    in-process one byte for byte."""
+    in-process one byte for byte. Last, ``main_sample`` with device cpu,
+    the plain version on the same uniforms: its fasta equals the card's
+    byte for byte, and its json the card's sequences."""
+    import dataclasses
     import json
     import os
     import shutil
@@ -765,6 +777,17 @@ def check_td_sample() -> dict:
         cli_wall = time.perf_counter() - t0
         assert proc.returncode == 0, proc.stdout + proc.stderr
         assert (work / paths[1]).read_bytes() == fasta, "the CLI drew other sequences"
+        # the plain version on the same files and the same Philox uniforms:
+        # td-sample's batch, every start and length a multiple of 4, takes
+        # the kernel's four-code store
+        t0 = time.perf_counter()
+        cpu_paths = main_sample(dataclasses.replace(cfg, device="cpu"))
+        cpu_wall = time.perf_counter() - t0
+        assert cpu_paths == paths
+        assert (work / paths[1]).read_bytes() == fasta, "the card's sequences differ from the CPU's"
+        cpu_samples = json.loads((work / paths[0]).read_text())
+        assert {k: [r[0] for r in v] for k, v in cpu_samples.items()} == {
+            k: [r[0] for r in v] for k, v in samples.items()}
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
@@ -773,9 +796,11 @@ def check_td_sample() -> dict:
         f"(of which reading the CSV {split['read_csv']:.3f} s, sample_all_structures "
         f"{split['sample_all_structures']:.4f} s); "
         f"{launches} batched launches for 2 calls; metrics agree with the sequences to "
-        f"{worst:.2g}; CLI subprocess rc 0 in {cli_wall:.2f} s, same fasta")
+        f"{worst:.2g}; CLI subprocess rc 0 in {cli_wall:.2f} s, same fasta; main_sample "
+        f"with device cpu (the plain version) in {cpu_wall:.3f} s, same fasta and sequences")
     return {"launches": launches, "main_sample_wall_s": walls, "split_s": split,
-            "cli_wall_s": cli_wall, "structures": len(lengths)}
+            "cli_wall_s": cli_wall, "cpu_main_sample_wall_s": cpu_wall,
+            "structures": len(lengths)}
 
 
 def main() -> int:

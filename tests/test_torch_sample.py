@@ -602,10 +602,13 @@ def test_sample_cli_on_cpu_and_without_a_card(tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lengths,C,n,rotamer", [
     ([76, 129, 1, 760, 33], 338, 100, True), ([25, 40, 33], 20, 256, False),
-    ([16, 0, 48, 5], 338, 70, False)])
+    ([16, 0, 48, 5], 338, 70, False), ([76] * 11, 338, 100, True),
+    ([16, 0, 48, 4, 40], 338, 70, False)])
 def test_batched_kernel_matches_plain_on_card(cuda_device, lengths, C, n, rotamer):
     """Codes and counts of one batched launch equal to the plain version run
-    on a CPU copy; B = 1 equals the single entry bit for bit."""
+    on a CPU copy; B = 1 equals the single entry bit for bit. The last two
+    batches have every start and length a multiple of 4, where the kernel
+    stores four codes at once (uint8 codes with the map, int16 without)."""
     from timed_design_tpu_torch.ops.sample import (
         philox_uniforms_batched,
         sample_codes_plain_batched,

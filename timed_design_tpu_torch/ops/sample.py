@@ -212,45 +212,50 @@ def sample_inverse_cdf_batched(
 
     ``probs``: (sum L, C) float32, every structure's rows packed with no
     padding. ``offsets``: (B+1,) integers where each structure starts
-    (``offsets[0] = 0``, ``offsets[B] = sum L``): host values (a sequence,
-    an array, a CPU tensor), checked and copied to the device; or an int32
-    tensor already on ``probs``' device, taken as it is (the caller vouches
-    for its values). Structure b's codes are the columns
-    ``offsets[b]:offsets[b+1]``, and its draws are those of counter (l, s,
-    b, 0): structure 0 draws what ``sample_inverse_cdf`` draws. On a CUDA
-    tensor this launches the kernel once, whatever B is, and adds one to
+    (``offsets[0] = 0``, ``offsets[B] = sum L``), read on the host (a
+    sequence, an array or a tensor) and checked before any launch.
+    Structure b's codes are the columns ``offsets[b]:offsets[b+1]``, and its
+    draws are those of counter (l, s, b, 0): structure 0 draws what
+    ``sample_inverse_cdf`` draws. On a CUDA tensor this launches the kernel
+    once, whatever B is, and adds one to
     ``sample_inverse_cdf_batched.launches``; on a CPU tensor it runs
     ``sample_codes_plain_batched`` on the same uniforms.
     """
     n = _check(probs, n_samples, class_map)
-    total, C = probs.shape
+    offs = _host_offsets(offsets, probs.shape[0])
     if probs.device.type == "cpu":
-        offs = _host_offsets(offsets, total)
         u = torch.from_numpy(philox_uniforms_batched(seed, n, offs))
         return sample_codes_plain_batched(probs, offs, u, class_map)
-    if isinstance(offsets, torch.Tensor) and offsets.device == probs.device:
-        if offsets.ndim != 1 or offsets.shape[0] < 1 or offsets.dtype != torch.int32:
-            raise ValueError(f"device offsets must be (B+1,) int32, got "
-                             f"{tuple(offsets.shape)} {offsets.dtype}")
-    else:
-        offsets = torch.from_numpy(_host_offsets(offsets, total).astype(np.int32)).to(probs.device)
-    B = offsets.shape[0] - 1
+    dev_offsets = torch.from_numpy(offs.astype(np.int32)).to(probs.device)
+    return _launch_batched(probs, dev_offsets, n, seed, class_map)
+
+
+sample_inverse_cdf_batched.launches = 0
+
+
+def _launch_batched(
+    probs: torch.Tensor, dev_offsets: torch.Tensor, n: int, seed: int,
+    class_map: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batched kernel's launch on CUDA ``probs``, given (B+1,) int32
+    ``dev_offsets`` on its device that ``_host_offsets`` has checked; the
+    kernel sizes its grid from ``probs``' rows and indexes by the offsets,
+    so unchecked offsets would read and write out of bounds."""
+    total, C = probs.shape
+    B = dev_offsets.shape[0] - 1
     if B + -(-total // _TILE_L) > 65535:
         raise ValueError(f"B={B} structures of {total} rows exceed the kernel's grid")
     codes = torch.empty((n, total), dtype=code_dtype(C, class_map), device=probs.device)
     counts = torch.empty((B, n, N_COUNTED), dtype=torch.int32, device=probs.device)
     if n == 0 or total == 0:
         return codes, counts.zero_()
-    probs, offsets = probs.contiguous(), offsets.contiguous()
+    probs, dev_offsets = probs.contiguous(), dev_offsets.contiguous()
     key0, key1 = _seed_key(seed)
     _on_device(probs.device.index, lambda sms, stream: _lib().sample_inverse_cdf_batched(
-        probs.data_ptr(), offsets.data_ptr(), B, _ptr(class_map), codes.data_ptr(),
+        probs.data_ptr(), dev_offsets.data_ptr(), B, _ptr(class_map), codes.data_ptr(),
         counts.data_ptr(), total, C, n, codes.element_size(), key0, key1, sms, stream))
     sample_inverse_cdf_batched.launches += 1
     return codes, counts
-
-
-sample_inverse_cdf_batched.launches = 0
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
