@@ -25,7 +25,11 @@ an output is wrong:
     once by ``python -m timed_design_tpu_torch.cli.sample``;
   - ProDCoNN, DenseNet and DenseCPD at registry widths: float32 on the card
     against the CPU, bfloat16 against float32, and one ``/design`` with
-    samples each from a server of all three.
+    samples each from a server of all three;
+  - ``td-predict --voxelize``: TIMED and TIMED_rotamer at registry widths,
+    batch 512, bfloat16 and float32, over 1ubq, the multichain and a
+    two-state NMR file, in-process and once as a subprocess; TIMED_rotamer
+    on 1ubq in float32 held to the CPU. It reaches no kernel of the port.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -803,6 +807,172 @@ def check_td_sample() -> dict:
             "structures": len(lengths)}
 
 
+def nmr_pdb(text: str, states: int = 2) -> str:
+    """``states`` MODELs of 1ubq's first model, every atom moved by noise
+    of 0.2 A drawn from the script's seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    atoms = []
+    for line in text.splitlines():
+        if line.startswith("ENDMDL"):
+            break
+        if line.startswith("ATOM"):
+            atoms.append(line)
+    out = []
+    for k in range(states):
+        out.append(f"MODEL     {k + 1:4d}")
+        for line in atoms:
+            x, y, z = (float(line[30:38]), float(line[38:46]), float(line[46:54])) + rng.normal(
+                0, 0.2, 3)
+            out.append(f"{line[:30]}{x:8.3f}{y:8.3f}{z:8.3f}{line[54:]}")
+        out.append("ENDMDL")
+    return "\n".join(out + ["END"]) + "\n"
+
+
+PREDICT_STRUCTURAL = ("datasetmap.txt", "encoded_labels.csv", "dataset.fasta")
+
+
+def check_td_predict_outputs(out: Path, model: str, rotamer: bool, nmr: bool) -> int:
+    """Every artifact of a td-predict run is there, and every fasta record
+    is as long as its chain's rows in the map; returns the residue count."""
+    import numpy as np
+
+    names = [*PREDICT_STRUCTURAL, f"{model}.csv", f"{model}.fasta", f"{model}.txt"]
+    names += [f"{model}_rot.csv"] if rotamer else []
+    names += [f"{model}_consensus.{e}" for e in ("fasta", "csv", "txt")] if nmr else []
+    missing = [n for n in names if not (out / n).exists()]
+    assert not missing, f"td-predict left out {missing}"
+    rows: dict[str, int] = {}
+    for line in (out / "datasetmap.txt").read_text().splitlines():
+        pdb, chain, *_ = line.split(",")
+        rows[pdb + chain] = rows.get(pdb + chain, 0) + 1
+    for fasta in (f"{model}.fasta", "dataset.fasta"):
+        lines = (out / fasta).read_text().splitlines()
+        got = {k[1:]: len(v) for k, v in zip(lines[0::2], lines[1::2])}
+        assert got == rows, f"{fasta}: record lengths differ from the map's residue counts"
+    n = sum(rows.values())
+    for csv in [f"{model}.csv"] + ([f"{model}_rot.csv"] if rotamer else []):
+        P = np.loadtxt(out / csv, delimiter=",", ndmin=2)
+        assert P.shape == (n, 338 if csv.endswith("_rot.csv") else 20) and np.isfinite(P).all()
+    return n
+
+
+def check_td_predict() -> dict:
+    """td-predict --voxelize on the card, in-process through the CLI's
+    ``main``: TIMED and TIMED_rotamer at registry widths (random weights
+    from a fixed seed), batch 512, over 1ubq, the 760-residue multichain and
+    a two-state NMR file (``--is_structure_nmr``, 988 frames in all); per
+    model bfloat16 (its first run warms cuDNN up), float32, bfloat16 again.
+    Prints the phase timings, frames/s of the predict phase (the warm
+    bfloat16 run) and the bfloat16 against float32 argmax agreement. Then
+    once as a subprocess of ``python -m timed_design_tpu_torch.cli.predict``
+    (its files without a probability equal the in-process run's), and
+    TIMED_rotamer on 1ubq in float32 on the card against the CPU:
+    probabilities within 1e-4, the files without a probability byte-equal.
+    This path reaches no TPU kernel: the sampling kernel's counts stay 0."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from timed_design_tpu_torch.cli.predict import main as predict_main
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+
+    device, models = "cuda", ("TIMED", "TIMED_rotamer")
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_td_predict_", dir=ROOT))
+    try:
+        inputs = work / "in"
+        inputs.mkdir()
+        text = gzip.decompress(UBQ.read_bytes()).decode()
+        shutil.copy(UBQ, inputs / "1ubq.pdb1.gz")
+        (inputs / "mult.pdb").write_text(multichain_pdb(text))
+        (inputs / "2nmr.pdb").write_text(nmr_pdb(text))
+
+        def run(model, dtype, out, path=inputs, dev=device, batch=512, nmr=True):
+            rotamer = model.endswith("rotamer")
+            argv = ["--voxelize", "--path_to_dataset", str(path), "--path_to_model", model,
+                    "--allow-random-weights", "--batch_size", str(batch), "--compute_dtype",
+                    dtype, "--device", dev, "--path_to_output", str(out),
+                    "--path_to_datasetmap", str(out / "datasetmap.txt")]
+            argv += ["--predict_rotamers"] if rotamer else []
+            argv += ["--is_structure_nmr"] if nmr else []
+            result = predict_main(argv)
+            return result, check_td_predict_outputs(out, model, rotamer, nmr)
+
+        sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+        per_model = {}
+        for model in models:
+            rotamer = model.endswith("rotamer")
+            matrix = f"{model}_rot.csv" if rotamer else f"{model}.csv"
+            runs = {}
+            for tag, dtype in (("bf16_first", "bfloat16"), ("f32", "float32"),
+                               ("bf16", "bfloat16")):
+                result, n = run(model, dtype, work / f"{model}_{tag}")
+                runs[tag] = {"timings_s": result.timings, "frames": n,
+                             "predict_frames_per_s": n / result.timings["predict"]}
+                log(f"td-predict {model} {dtype} ({tag}), {n} frames, batch 512: " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in result.timings.items())
+                    + f"; predict {n / result.timings['predict']:.0f} frames/s")
+            for name in PREDICT_STRUCTURAL + (f"{model}.txt", f"{model}_consensus.txt"):
+                assert len({(work / f"{model}_{t}" / name).read_bytes() for t in runs}) == 1, name
+            bf = np.loadtxt(work / f"{model}_bf16" / matrix, delimiter=",", ndmin=2)
+            f32 = np.loadtxt(work / f"{model}_f32" / matrix, delimiter=",", ndmin=2)
+            agree = float((bf.argmax(1) == f32.argmax(1)).mean())
+            per_model[model] = {"runs": runs, "bf16_vs_f32_argmax_agreement": agree,
+                                "bf16_vs_f32_max_abs_dp": float(np.abs(bf - f32).max())}
+            log(f"td-predict {model}: bfloat16 against float32 argmax agreement {agree:.4f} "
+                f"({matrix}, {bf.shape[0]} residues, max |dp| "
+                f"{per_model[model]['bf16_vs_f32_max_abs_dp']:.3g}); warm bfloat16 predict "
+                f"{runs['bf16']['predict_frames_per_s']:.0f} frames/s; {gpu_name_and_power()}")
+
+        model = models[-1]
+        t0 = time.perf_counter()
+        out = work / "cli"
+        proc = subprocess.run(
+            [sys.executable, "-m", "timed_design_tpu_torch.cli.predict", "--voxelize",
+             "--path_to_dataset", str(inputs), "--path_to_model", model,
+             "--allow-random-weights", "--predict_rotamers", "--is_structure_nmr",
+             "--compute_dtype", "bfloat16", "--device", device, "--path_to_output", str(out),
+             "--path_to_datasetmap", str(out / "datasetmap.txt")],
+            cwd=work, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+        cli_wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        n = check_td_predict_outputs(out, model, True, True)
+        assert f"Predicted {n} residues" in proc.stdout
+        for name in PREDICT_STRUCTURAL + (f"{model}.txt", f"{model}_consensus.txt"):
+            assert (out / name).read_bytes() == (work / f"{model}_bf16" / name).read_bytes(), name
+        log(f"td-predict CLI subprocess ({model}, bfloat16): rc 0 in {cli_wall:.2f} s")
+
+        # the card against the CPU: 1ubq, float32 (the CPU's batch is smaller,
+        # which changes no row)
+        cmp = {}
+        for dev, batch in ((device, 512), ("cpu", 80)):
+            cmp[dev] = work / f"ubq_{dev}"
+            run(model, "float32", cmp[dev], path=inputs / "1ubq.pdb1.gz", dev=dev, batch=batch,
+                nmr=False)
+        want = np.loadtxt(cmp["cpu"] / f"{model}_rot.csv", delimiter=",")
+        got = np.loadtxt(cmp[device] / f"{model}_rot.csv", delimiter=",")
+        err = float(np.abs(got - want).max())
+        same = [name for name in PREDICT_STRUCTURAL + (f"{model}.txt",)
+                if (cmp[device] / name).read_bytes() == (cmp["cpu"] / name).read_bytes()]
+        log(f"td-predict {model} 1ubq float32, {device} against cpu: max |dp| = {err:.3g}; "
+            f"byte-equal: {', '.join(same)}")
+        assert got.shape == (76, 338) and err <= 1e-4
+        assert len(same) == len(PREDICT_STRUCTURAL) + 1
+        launches = sample_inverse_cdf.launches + sample_inverse_cdf_batched.launches
+        assert launches == 0, "td-predict launched the sampling kernel"
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"td-predict: phase passed in {phase_s:.1f} s; launches of the sampling kernel: 0")
+    return {"launches": launches, "per_model": per_model, "cli_wall_s": cli_wall,
+            "f32_card_vs_cpu_max_abs_dp": err, "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -820,10 +990,13 @@ def main() -> int:
     serving = check_serving()
     td_sample = check_td_sample()
     families = check_families()
-    log(json.dumps({"families": families["per_family"], "td_sample": td_sample}))
+    td_predict = check_td_predict()
+    log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
+                    "td_predict": td_predict}))
     main_shape = kernel["shapes"][0]
+    # td-predict reaches no TPU kernel (voxelizer and convs are plain torch)
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
-                "families": families["launches"]}
+                "families": families["launches"], "td_predict": td_predict["launches"]}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",

@@ -22,7 +22,7 @@ TABLES = [
     "STANDARD_AMINO_ACIDS", "UNCOMMON_RESIDUE_DICT", "VDW_RADII", "POLARITY_ZIMMERMAN",
     "RESIDUE_CHARGE", "RESIDUE_MW", "RESIDUE_EXT_280", "MW_ARR", "EXT280_ARR",
     "PKA_POSITIVE", "PKA_NEGATIVE", "PKA_SIDECHAIN_ARR", "PKA_SIGN_ARR", "WATER_MASS",
-    "N_ROTAMER_CLASSES", "ROTAMER_TO_AA", "ROTAMER_CATEGORIES",
+    "N_ROTAMER_CLASSES", "ROTAMER_TO_AA", "ROTAMER_TO_AA_ONEHOT", "ROTAMER_CATEGORIES",
 ]
 
 

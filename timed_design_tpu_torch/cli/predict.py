@@ -1,0 +1,169 @@
+"""Predict sequences from PDB files on PyTorch (the port of ``td-predict
+--voxelize``).
+
+    python -m timed_design_tpu_torch.cli.predict --voxelize \\
+        --path_to_dataset structures/ --path_to_model TIMED@ckpt.npz \\
+        --path_to_output out/
+
+PDB file(s) -> parse -> frame atoms -> frames voxelized on the device batch
+by batch -> every model on each batch -> the JAX package's artifacts:
+``{model}.csv`` (``{model}_rot.csv`` too with ``--predict_rotamers``),
+``{model}.fasta``, the SRB map ``{model}.txt``, ``dataset.fasta``,
+``encoded_labels.csv``, the per-residue ``datasetmap.txt``, with
+``--is_structure_nmr`` ``{model}_consensus.{fasta,csv,txt}``, and with
+``--ensemble`` the same set as ``ensemble``. No HDF5 file is written or
+read.
+
+The flags of ``timed_design_tpu/cli/predict.py`` plus ``--device`` (default
+``cuda``; without a card it exits with a message, and runs on the CPU only
+with ``--device cpu``). ``--voxelize`` is required. ``--quantize``,
+``--report`` and ``--output_analysis`` are not ported and exit.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import time
+from pathlib import Path
+
+import torch
+
+from ..utils import PredictConfig
+
+NOT_PORTED = {
+    "quantize": "ROADMAP Queue 1, item 4 (models/optimize.py, then models/quantize.py)",
+    "report": "ROADMAP Queue 1, item 6 (the report and the plots)",
+    "output_analysis": "ROADMAP Queue 1, item 6 (the report and the plots)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Predict sequences with the PyTorch model zoo")
+    p.add_argument("--batch_size", type=int, default=512,
+                   help="Frames per device step (default: 512)")
+    p.add_argument("--path_to_dataset", type=str, required=True,
+                   help="A PDB file or a directory of them (with --voxelize)")
+    p.add_argument("--path_to_datasetmap", type=str, default="datasetmap.txt")
+    p.add_argument("--path_to_model", type=str, nargs="+", required=True,
+                   help="Registry name(s) or Name@checkpoint.npz: TIMED, ProDCoNN, ...")
+    p.add_argument("--path_to_blacklist", type=str, default=None,
+                   help="Directory of .txt files listing PDB codes to leave out")
+    p.add_argument("--path_to_output", type=str, default=".")
+    p.add_argument("--predict_rotamers", action="store_true",
+                   help="338-rotamer head instead of 20 residues")
+    p.add_argument("--is_structure_nmr", action="store_true",
+                   help="Build a consensus over NMR states")
+    p.add_argument("--start_batch", type=int, default=0,
+                   help="Resume from this batch index")
+    p.add_argument("--voxelize", action="store_true",
+                   help="Input is PDB file(s), voxelized on the device (required)")
+    p.add_argument("--codec", type=str, default="CNOCACB")
+    p.add_argument("--output_analysis", action="store_true",
+                   help="Not ported: exits with the ROADMAP item that brings it")
+    p.add_argument("--report", action="store_true",
+                   help="Not ported: exits with the ROADMAP item that brings it")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="Conv compute dtype (float32 default, for strict CSV parity)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="Write a torch.profiler trace of the run to DIR "
+                        "(chrome trace JSON)")
+    p.add_argument("--ensemble", action="store_true",
+                   help="Also average the models' probability matrices and "
+                        "emit the full artifact set as 'ensemble' "
+                        "(csv/fasta/SRB; needs >=2 models with the same head). "
+                        "Every model already runs on the same device batches.")
+    p.add_argument("--quantize", type=str, default=None,
+                   choices=["int8", "int8-fake", "w8"],
+                   help="Not ported: exits with the ROADMAP item that brings it")
+    p.add_argument("--allow-random-weights", action="store_true",
+                   dest="allow_random_weights",
+                   help="Permit bare registry names with no weights "
+                        "(randomly initialized — benchmarking only). "
+                        "Without this flag, a model given as a registry "
+                        "name must carry weights via Name@ckpt.npz.")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default cuda; cpu only when named)")
+    return p
+
+
+def main(argv=None):
+    """Run td-predict; returns the engine's PredictionResult."""
+    args = build_parser().parse_args(argv)
+    for flag, item in NOT_PORTED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag} is not ported to the PyTorch package yet: {item}")
+    dataset_path = Path(args.path_to_dataset)
+    if dataset_path.suffix.lower() in (".hdf5", ".h5"):
+        raise SystemExit(
+            f"{dataset_path}: HDF5 frame datasets are not read by the PyTorch package "
+            "(ROADMAP, waiting: td-predict on HDF5 datasets); give PDB files with --voxelize")
+    if not args.voxelize:
+        raise SystemExit("--voxelize is required: the PyTorch package predicts from PDB "
+                         "files, voxelized on the device")
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device here; "
+                         "pass --device cpu to predict on the CPU")
+    out = Path(args.path_to_output)
+    out.mkdir(parents=True, exist_ok=True)
+    cfg = PredictConfig(
+        path_to_dataset=dataset_path,
+        path_to_model=args.path_to_model,
+        path_to_datasetmap=Path(args.path_to_datasetmap),
+        path_to_output=out,
+        path_to_blacklist=Path(args.path_to_blacklist) if args.path_to_blacklist else None,
+        batch_size=args.batch_size,
+        start_batch=args.start_batch,
+        predict_rotamers=args.predict_rotamers,
+        is_structure_nmr=args.is_structure_nmr,
+    ).validate()
+
+    from ..engine import load_dataset_and_predict
+    from ..voxel import make_frame_set
+
+    pdbs = sorted(dataset_path.glob("**/*.pdb*")) if dataset_path.is_dir() else [dataset_path]
+    t0 = time.perf_counter()
+    # NMR consensus needs every state as a structure <pdb>_<i>
+    frame_set = make_frame_set(pdbs, codec=args.codec,
+                               voxelise_all_states=args.is_structure_nmr)
+    print(f"Read {len(pdbs)} structure file(s) in {time.perf_counter() - t0:.2f}s; "
+          f"frames are voxelized on {args.device}, batch by batch")
+
+    profile_cm = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.device(args.device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        profile_cm = profile(activities=acts)
+    with profile_cm as prof:
+        result = load_dataset_and_predict(
+            cfg.path_to_model,
+            frame_set,
+            batch_size=cfg.batch_size,
+            start_batch=cfg.start_batch,
+            dataset_map_path=cfg.path_to_datasetmap,
+            blacklist=cfg.path_to_blacklist,
+            predict_rotamers=cfg.predict_rotamers,
+            is_consensus=cfg.is_structure_nmr,
+            path_to_output=cfg.path_to_output,
+            device=args.device,
+            compute_dtype=getattr(torch, args.compute_dtype),
+            allow_random_weights=args.allow_random_weights,
+            ensemble=args.ensemble,
+        )
+    if args.profile:
+        trace = Path(args.profile) / "td_predict_trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        print(f"Profiler trace written to {trace}")
+    print(f"Predicted {sum(len(s) for s in result.pdb_to_sequence.values())} residues "
+          f"across {len(result.pdb_to_sequence)} chains.")
+    for phase, secs in result.timings.items():
+        print(f"  {phase}: {secs:.2f}s")
+    return result
+
+
+if __name__ == "__main__":
+    main()

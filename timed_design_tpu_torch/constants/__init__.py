@@ -29,5 +29,6 @@ from .rotamers import (  # noqa: F401
     N_ROTAMER_CLASSES,
     ROTAMER_CATEGORIES,
     ROTAMER_TO_AA,
+    ROTAMER_TO_AA_ONEHOT,
     compress_rotamer_probs,
 )

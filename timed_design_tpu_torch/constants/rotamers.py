@@ -1,6 +1,6 @@
 """The 338-class rotamer codec: the port's copy of ``ROTAMER_CATEGORIES``,
-``ROTAMER_TO_AA`` and ``compress_rotamer_probs`` from
-``timed_design_tpu/constants/rotamers.py``.
+``ROTAMER_TO_AA``, ``ROTAMER_TO_AA_ONEHOT`` and ``compress_rotamer_probs``
+from ``timed_design_tpu/constants/rotamers.py``.
 
 Per amino acid in AA1 order, one class for every chi-bin combination
 ``product([1, 2, 3], repeat=n_chi)`` (e.g. ``LYS_1232``), and a single
@@ -27,11 +27,12 @@ ROTAMER_TO_AA = np.array(
 )
 assert len(ROTAMER_CATEGORIES) == ROTAMER_TO_AA.shape[0] == N_ROTAMER_CLASSES
 
-_ROTAMER_TO_AA_ONEHOT = np.zeros((N_ROTAMER_CLASSES, len(AA1)), dtype=np.float32)
-_ROTAMER_TO_AA_ONEHOT[np.arange(N_ROTAMER_CLASSES), ROTAMER_TO_AA] = 1.0
+# (338, 20) one-hot matrix: column j collects every rotamer of amino acid j
+ROTAMER_TO_AA_ONEHOT = np.zeros((N_ROTAMER_CLASSES, len(AA1)), dtype=np.float32)
+ROTAMER_TO_AA_ONEHOT[np.arange(N_ROTAMER_CLASSES), ROTAMER_TO_AA] = 1.0
 
 
 def compress_rotamer_probs(prediction_matrix: np.ndarray) -> np.ndarray:
     """(N, 338) rotamer probabilities -> (N, 20) amino-acid probabilities:
     each amino acid's rotamers summed, as one matrix product."""
-    return prediction_matrix @ _ROTAMER_TO_AA_ONEHOT.astype(prediction_matrix.dtype)
+    return prediction_matrix @ ROTAMER_TO_AA_ONEHOT.astype(prediction_matrix.dtype)

@@ -1,14 +1,18 @@
 """Batched prediction: frames -> per-residue probabilities (PyTorch).
 
-The port of ``Predictor``, ``_resolve_model`` and ``predict_structure``
-(timed_design_tpu/engine/predictor.py). The batch is fixed (the last one is
-padded); up to ``max_in_flight`` batches are queued on the device before
-the oldest result is fetched, each result copied once into a pinned host
-buffer. ``load_dataset_and_predict`` (HDF5) is not ported yet.
+The port of ``Predictor``, ``_resolve_model``, ``load_dataset_and_predict``
+and ``predict_structure`` (timed_design_tpu/engine/predictor.py). The batch
+is fixed (the last one is padded); up to ``max_in_flight`` batches are
+queued on the device before the oldest result is fetched, each result
+copied once into a pinned host buffer. ``load_dataset_and_predict`` takes
+its frames from an in-memory ``FrameSet`` (PDB files, voxelized on the
+device batch by batch), not from an HDF5 file.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
+import queue
 import sys
 import threading
 import typing as t
@@ -18,6 +22,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..constants import ROTAMER_CATEGORIES, ROTAMER_TO_AA_ONEHOT
+from ..io import (
+    DatasetMap,
+    extract_sequences,
+    get_pdb_keys_to_filter,
+    load_datasetmap,
+    load_prediction_matrix,
+    save_consensus_probs,
+    save_datasetmap,
+    save_dict_to_fasta,
+    save_srb_datasetmap,
+    write_int_csv,
+    write_prediction_rows,
+)
 from ..models import (
     ModelSpec,
     get_model_spec,
@@ -25,6 +43,8 @@ from ..models import (
     load_checkpoint_params,
     load_model,
 )
+from ..utils import PhaseTimer
+from ..voxel.dataset import FrameBatchSource, FrameSet, create_flat_dataset_map
 
 
 def default_device() -> torch.device:
@@ -73,21 +93,26 @@ class Predictor:
             x = padded
         return x
 
-    def _launch(self, frames, n_valid: int):
-        """Queue one batch's forward and the copy of its result to a pinned
-        host buffer; returns what ``_fetch`` needs to wait for it."""
+    def run_device_batch(self, x: torch.Tensor):
+        """Queue the forward of a batch already placed by ``to_device`` (of
+        this predictor or any other with the same device, batch and compute
+        dtype, so that several models share one device batch) and the copy
+        of its result to a pinned host buffer. Returns the handle ``fetch``
+        waits on."""
         with torch.inference_mode():
-            out = self.model(self.to_device(frames))
+            out = self.model(x)
         if self.device.type != "cuda":
-            return out, None, n_valid
+            return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done, n_valid
+        return host, done
 
     @staticmethod
-    def _fetch(host: torch.Tensor, done, n_valid: int) -> np.ndarray:
+    def fetch(handle, n_valid: int) -> np.ndarray:
+        """Wait for a ``run_device_batch`` result; its first ``n_valid`` rows."""
+        host, done = handle
         if done is not None:
             done.synchronize()
         return host[:n_valid].numpy()
@@ -100,11 +125,11 @@ class Predictor:
         (n_valid, n_classes) float32 arrays in input order."""
         pending: collections.deque = collections.deque()
         for frames, n_valid in batches:
-            pending.append(self._launch(frames, n_valid))
+            pending.append((self.run_device_batch(self.to_device(frames)), n_valid))
             if len(pending) >= max_in_flight:
-                yield self._fetch(*pending.popleft())
+                yield self.fetch(*pending.popleft())
         while pending:
-            yield self._fetch(*pending.popleft())
+            yield self.fetch(*pending.popleft())
 
     def predict_probs(self, frames) -> np.ndarray:
         """Predict (N, n_classes) for any N; pads to the batch."""
@@ -150,6 +175,313 @@ def _resolve_model(m, compute_dtype: torch.dtype | None = None,
         torch.manual_seed(0)
         module = spec.build(**kw)
     return module, spec.name
+
+
+@dataclasses.dataclass
+class PredictionResult:
+    """What ``load_dataset_and_predict`` returns: the map, the last model's
+    decoded maps (the ensemble's with ``ensemble``) and the phase times."""
+
+    flat_dataset_map: DatasetMap
+    pdb_to_sequence: dict[str, str]
+    pdb_to_probability: dict[str, np.ndarray]
+    pdb_to_real_sequence: dict[str, str]
+    pdb_to_consensus: dict[str, str] | None
+    pdb_to_consensus_prob: dict[str, np.ndarray] | None
+    timings: dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _datasetmap_matches_frames(dmap: DatasetMap, frame_set: FrameSet) -> bool:
+    """Does a loaded map describe this frame set? Every entry must name one
+    of its frames (a blacklist-filtered map is a subset). The JAX package
+    tests the first and last entries against the HDF5 file; here every key
+    is a set lookup, so a map with a stale entry anywhere is regenerated."""
+    return bool(dmap.entries) and all(
+        (pdb, chain, rid) in frame_set.index for pdb, chain, rid, _ in dmap.entries)
+
+
+def load_dataset_and_predict(
+    models: list,
+    frame_set: FrameSet,
+    batch_size: int = 512,
+    start_batch: int = 0,
+    dataset_map_path: Path = Path("datasetmap.txt"),
+    blacklist: Path | None = None,
+    predict_rotamers: bool = False,
+    is_consensus: bool = False,
+    path_to_output: Path | None = None,
+    device: torch.device | str | None = None,
+    compute_dtype: torch.dtype | None = None,
+    allow_random_weights: bool = False,
+    ensemble: bool = False,
+) -> PredictionResult:
+    """Run every model over the frame set and write the JAX package's
+    artifact set into ``path_to_output`` (default: the working directory).
+
+    Each batch is voxelized on ``device`` once and every model runs on that
+    one device batch. Per model: ``{model}.csv`` (float16), or in rotamer
+    mode ``{model}_rot.csv`` (the 338-class matrix, full precision) and the
+    argmax-collapsed one-hot ``{model}.csv`` (float16); the SRB map
+    ``{model}.txt``; ``{model}.fasta`` decoded from the matrix cast to
+    float16 (argmax ties break as a reader of the CSV would); with
+    ``is_consensus`` the NMR consensus fasta, csv and txt. Once:
+    ``encoded_labels.csv``, ``dataset.fasta`` and the per-residue map.
+
+    The map: ``dataset_map_path`` when it exists (or exists under
+    ``path_to_output``), is per-residue and names only frames of this set;
+    else made in the JAX package's row order (``create_flat_dataset_map``,
+    blacklisted codes removed with a warning) and saved under the requested
+    file name in ``path_to_output``. Batches follow the map.
+
+    ``start_batch`` resumes: the CSVs are appended from that batch on, then
+    read back whole for decoding, and the one-hot ``{model}.csv`` is
+    regenerated from the read-back matrix. ``ensemble`` averages the models'
+    CSV-precision rows in one float64 running sum (so a resumed run gives
+    the same bytes) and writes the artifact set as ``ensemble``; the models
+    must share a head.
+    """
+    timer = PhaseTimer()
+    path_to_output = Path.cwd() if path_to_output is None else Path(path_to_output)
+    device = torch.device(device) if device is not None else default_device()
+    filter_list = get_pdb_keys_to_filter(blacklist) if blacklist else []
+
+    with timer.phase("datasetmap"):
+        dataset_map_path = Path(dataset_map_path)
+        if (
+            not dataset_map_path.exists()
+            and not dataset_map_path.is_absolute()
+            and (path_to_output / dataset_map_path).exists()
+        ):
+            # a previous run with this output directory saved the map there
+            dataset_map_path = path_to_output / dataset_map_path
+        dmap = None
+        if dataset_map_path.exists():
+            head = dataset_map_path.read_text(errors="replace")[:64]
+            if head.startswith("ignore_uncommon"):
+                raise ValueError(
+                    f"{dataset_map_path} is an SRB/new-format datasetmap "
+                    "(count rows, no residue labels); prediction needs the "
+                    "per-residue map. Delete it to regenerate, or point "
+                    "dataset_map_path elsewhere."
+                )
+            dmap = load_datasetmap(dataset_map_path, is_old=True)
+            if not _datasetmap_matches_frames(dmap, frame_set):
+                print(f"# {dataset_map_path} does not match the input structures "
+                      "(stale map from another dataset?) — regenerating")
+                dmap = None
+        if dmap is None:
+            dmap = create_flat_dataset_map(frame_set, filter_list, remove_blacklist_silently=True)
+            save_datasetmap(dmap, path_to_output / dataset_map_path.name)
+
+    if not models:
+        raise ValueError("no models given")
+    resolved_models: list[tuple[nn.Module, str]] = []
+    for m in models:
+        model, model_name = _resolve_model(
+            m, compute_dtype=compute_dtype, allow_random_weights=allow_random_weights)
+        resolved_models.append((model, model_name))
+    predictors = [Predictor(model, batch_size=batch_size, device=device)
+                  for model, _ in resolved_models]
+    if len({p.dtype for p in predictors}) != 1:
+        raise ValueError("the models compute in different dtypes "
+                         f"{sorted(str(p.dtype) for p in predictors)}; they share one device batch")
+    if ensemble:
+        if len(predictors) < 2:
+            raise ValueError("ensemble=True needs at least two models to average")
+        heads = {p.n_classes for p in predictors}
+        if len(heads) != 1:
+            raise ValueError(
+                "ensemble requires models with matching heads; got class "
+                f"counts {sorted(heads)} — mixing 20-residue and 338-rotamer "
+                "models cannot be averaged"
+            )
+    # the artifact format is per run: every head must match predict_rotamers
+    for p, (_, name) in zip(predictors, resolved_models):
+        if predict_rotamers and p.n_classes != 338:
+            raise ValueError(
+                f"predict_rotamers=True but model {name!r} has a "
+                f"{p.n_classes}-class head (expected 338). Run 20-class "
+                "models in a separate invocation without --predict_rotamers."
+            )
+        if not predict_rotamers and p.n_classes == 338:
+            raise ValueError(
+                f"model {name!r} has a 338-rotamer head; pass "
+                "--predict_rotamers (or run it separately from 20-class "
+                "models — the artifact format is per-run)."
+            )
+
+    resuming = start_batch > 0
+    source = FrameBatchSource(frame_set, dmap, predictors[0].batch_size, start_batch,
+                              device=device)
+    # host memory: each model's float16 decode matrix, plus one float64
+    # running sum with ensemble; the probability CSVs stream to disk
+    n_models = len(predictors)
+    n_classes = predictors[0].n_classes
+    decode_parts: list[list[np.ndarray]] = [[] for _ in predictors]
+    ens_sum: np.ndarray | None = None
+    ens_off = 0
+    if ensemble and not resuming:
+        ens_sum = np.zeros((dmap.n_residues, n_classes), np.float64)
+
+    class _ModelCSVStream:
+        """Per-model append writer: the matrix (full precision in rotamer
+        mode, float16 otherwise) and, in rotamer mode, the argmax one-hots."""
+
+        def __init__(self, model_name: str, append: bool = resuming):
+            mode = "ab" if append else "wb"
+            self.main_path = path_to_output / (
+                f"{model_name}_rot.csv" if predict_rotamers else f"{model_name}.csv")
+            self.onehot_path = path_to_output / f"{model_name}.csv"
+            self._main = open(self.main_path, mode)
+            self._onehot = open(self.onehot_path, mode) if predict_rotamers else None
+
+        def write(self, rows: np.ndarray) -> None:
+            if predict_rotamers:
+                write_prediction_rows(self._main, rows, float16=False)
+                onehot = ROTAMER_TO_AA_ONEHOT[rows.argmax(axis=1)]
+                write_prediction_rows(self._onehot, onehot, float16=True)
+            else:
+                write_prediction_rows(self._main, rows, float16=True)
+
+        def close(self) -> None:
+            self._main.close()
+            if self._onehot is not None:
+                self._onehot.close()
+
+    streams = [_ModelCSVStream(name) for _, name in resolved_models]
+    labels_file = open(path_to_output / "encoded_labels.csv", "ab" if resuming else "wb")
+    try:
+        with timer.phase("predict"):
+            pending: collections.deque = collections.deque()
+            max_in_flight = max(2, 8 // n_models)
+            # one writer thread drains a bounded queue in order, so the
+            # append order (and resume, and the bytes) are the serial path's
+            write_q: queue.Queue = queue.Queue(maxsize=4)
+            writer_err: list[BaseException] = []
+            stop = object()
+
+            def _write_batch(outs_np, y, n):
+                nonlocal ens_off
+                y_int = y[:n].astype(np.int64)
+                if not write_int_csv(labels_file, y_int):
+                    np.savetxt(labels_file, y_int, delimiter=",", fmt="%i")
+                for i, rows in enumerate(outs_np):
+                    streams[i].write(rows)
+                    decode_parts[i].append(rows.astype(np.float16))
+                    if ens_sum is not None:
+                        # what the streamed CSV holds, so that a resumed run
+                        # (which reads the CSVs back) sums the same values
+                        ens_sum[ens_off : ens_off + n] += (
+                            rows if predict_rotamers else rows.astype(np.float16))
+                ens_off += n
+
+            def _writer():
+                while True:
+                    item = write_q.get()
+                    try:
+                        if item is stop:
+                            return
+                        if not writer_err:  # after an error, drain without writing
+                            _write_batch(*item)
+                    except BaseException as e:  # noqa: BLE001 - re-raised on the caller's thread
+                        writer_err.append(e)
+                    finally:
+                        write_q.task_done()
+
+            writer_th = threading.Thread(target=_writer, name="csv-writer", daemon=True)
+            writer_th.start()
+
+            def _drain_one():
+                # the wait for the device stays on this thread: it throttles
+                # the launches (at most max_in_flight batches queued)
+                outs, y, n = pending.popleft()
+                outs_np = [Predictor.fetch(h, n) for h in outs]
+                if writer_err:
+                    raise writer_err[0]
+                write_q.put((outs_np, y, n))
+
+            try:
+                for X, y, n_valid in source:
+                    x_dev = predictors[0].to_device(X)
+                    pending.append(([p.run_device_batch(x_dev) for p in predictors], y, n_valid))
+                    if len(pending) >= max_in_flight:
+                        _drain_one()
+                while pending:
+                    _drain_one()
+            finally:
+                write_q.put(stop)
+                writer_th.join()
+            if writer_err:
+                raise writer_err[0]
+    finally:
+        labels_file.close()
+        for st in streams:
+            st.close()
+
+    def _emit_outputs(probs, model_name, *, read_back, write_csv=False, main_csv=None):
+        """Decode one model's matrix and write its artifacts other than the
+        streamed CSVs (``write_csv``: the ensemble's CSVs too). Returns
+        (decoded, full matrix), the full matrix read back from the CSV on a
+        resumed run."""
+        with timer.phase("write"):
+            if write_csv:
+                st = _ModelCSVStream(model_name, append=False)
+                st.write(probs)
+                st.close()
+                main_csv = st.main_path
+            save_srb_datasetmap(dmap, model_name, path_to_output)
+
+        with timer.phase("decode"):
+            if read_back:
+                probs = load_prediction_matrix(main_csv, dtype=np.float64)
+                if probs.shape[0] != dmap.n_residues:
+                    raise ValueError(
+                        f"Resume mismatch: {main_csv} holds {probs.shape[0]} "
+                        f"rows but the dataset map has {dmap.n_residues} "
+                        "residues — was --start_batch consistent with the "
+                        "previous run's batch size?"
+                    )
+                if predict_rotamers:
+                    # the appended one-hot file may be a batch off after a
+                    # crash: regenerate it from the validated matrix
+                    onehot20 = ROTAMER_TO_AA_ONEHOT[probs.argmax(axis=1)]
+                    with open(path_to_output / f"{model_name}.csv", "wb") as f:
+                        write_prediction_rows(f, onehot20, float16=True)
+            # decoded from float16, as a reader of the float16 CSV would,
+            # the NMR consensus's (prev + cur) / 2 included
+            decoded = extract_sequences(
+                dmap, probs.astype(np.float16),
+                rotamer_categories=ROTAMER_CATEGORIES if predict_rotamers else None,
+                is_consensus=is_consensus,
+            )
+
+        with timer.phase("write"):
+            save_dict_to_fasta(decoded.pdb_to_sequence, model_name, path_to_output)
+            save_dict_to_fasta(decoded.pdb_to_real_sequence, "dataset", path_to_output)
+            if decoded.pdb_to_consensus:
+                save_dict_to_fasta(decoded.pdb_to_consensus, model_name + "_consensus",
+                                   path_to_output)
+                save_consensus_probs(decoded.pdb_to_consensus_prob, model_name, path_to_output)
+        return decoded, probs
+
+    result: PredictionResult | None = None
+    for model_i, (predictor, (_, model_name)) in enumerate(zip(predictors, resolved_models)):
+        probs = (np.concatenate(decode_parts[model_i]) if decode_parts[model_i]
+                 else np.zeros((0, predictor.n_classes), np.float16))
+        decode_parts[model_i] = []  # freed as each model is decoded
+        decoded, full_probs = _emit_outputs(
+            probs, model_name, read_back=resuming, main_csv=streams[model_i].main_path)
+        if ensemble and resuming:
+            # the read-back matrices are the whole run's
+            m = np.asarray(full_probs, dtype=np.float64)
+            ens_sum = m if ens_sum is None else ens_sum + m
+        result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary())
+
+    if ensemble:
+        decoded, _ = _emit_outputs(ens_sum / n_models, "ensemble", read_back=False,
+                                   write_csv=True)
+        result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary())
+    return result
 
 
 def _structure_model_key(model) -> tuple:

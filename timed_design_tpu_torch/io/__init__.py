@@ -1,12 +1,24 @@
-"""The port's io: datasetmaps, prediction decoding and the writers of the
-sampling path. HDF5-free: nothing here imports h5py (the card's machine
-has none), so the HDF5 frame reader of ``timed_design_tpu/io/h5frames.py``
-has no counterpart yet."""
-from .datasetmap import DatasetMap, load_datasetmap, save_datasetmap  # noqa: F401
-from .decode import DecodedPredictions, extract_sequences  # noqa: F401
+"""The port's io: datasetmaps, prediction decoding and the writers of
+``td-predict`` and ``td-sample``. HDF5-free: nothing here imports h5py (the
+card's machine has none), so ``td-predict`` takes its frames from the
+voxelizer (``voxel/dataset.py``), never from an HDF5 file."""
+from .datasetmap import (  # noqa: F401
+    SRB_HEADER,
+    DatasetMap,
+    get_pdb_keys_to_filter,
+    load_datasetmap,
+    save_datasetmap,
+    save_srb_datasetmap,
+)
+from .decode import DecodedPredictions, consensus_running_average, extract_sequences  # noqa: F401
 from .writers import (  # noqa: F401
     load_prediction_matrix,
+    save_consensus_probs,
     save_dict_to_fasta,
+    save_encoded_labels,
     save_prediction_csv,
     save_sampled,
+    write_float16_csv,
+    write_int_csv,
+    write_prediction_rows,
 )

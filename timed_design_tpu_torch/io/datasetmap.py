@@ -1,5 +1,6 @@
 """Datasetmap formats: the port's copy of ``timed_design_tpu/io/datasetmap.py``
-(what the sampling path uses of it).
+(what ``td-sample`` and ``td-predict`` use of it), with the residue order and
+the blacklist reader of ``timed_design_tpu/io/h5frames.py``.
 
   * "old": CSV rows ``pdb,chain,residue_id,label``, one row per residue;
   * "new"/SRB: 3 header lines (``ignore_uncommon False``, ``include_pdbs``,
@@ -8,7 +9,10 @@
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
+
+SRB_HEADER = "ignore_uncommon False\ninclude_pdbs\n##########\n"
 
 
 @dataclasses.dataclass
@@ -23,6 +27,27 @@ class DatasetMap:
     @property
     def is_old(self) -> bool:
         return self.entries is not None
+
+    @property
+    def n_residues(self) -> int:
+        if self.is_old:
+            return len(self.entries)
+        return sum(c for _, c in self.counts)
+
+    def to_counts(self) -> list[tuple[str, int]]:
+        """Collapse per-residue entries into SRB chain counts: a trailing
+        NMR state suffix ``_<digits>`` stripped, the chain appended to a
+        4-letter pdb code (the JAX package's rule, which fixes the
+        reference's ``"_0" in pdb`` substring test)."""
+        if not self.is_old:
+            return list(self.counts)
+        count_dict: dict[str, int] = {}
+        for pdb, chain, _, _ in self.entries:
+            pdb = re.sub(r"_\d+$", "", pdb)
+            if len(pdb) == 4:
+                pdb += chain
+            count_dict[pdb] = count_dict.get(pdb, 0) + 1
+        return list(count_dict.items())
 
 
 def load_datasetmap(path: Path, is_old: bool = False) -> DatasetMap:
@@ -57,3 +82,35 @@ def save_datasetmap(dmap: DatasetMap, path: Path) -> Path:
         for pdb, chain, rid, label in dmap.entries:
             f.write(f"{pdb},{chain},{rid},{label}\n")
     return path
+
+
+def save_srb_datasetmap(dmap: DatasetMap, model_name: str, path_to_output: Path) -> Path:
+    """Write the PDBench/SRB format ``{model}.txt``."""
+    path = Path(path_to_output) / f"{model_name}.txt"
+    with open(path, "w") as f:
+        f.write(SRB_HEADER)
+        for pdb_chain, count in dmap.to_counts():
+            f.write(f"{pdb_chain} {count}\n")
+    return path
+
+
+def _residue_sort_key(rid: str) -> tuple:
+    """Natural order of residue ids, per id: numeric part, then insertion
+    code ('2' < '10' < '100' < '100A' < '100B'); ids without a number last."""
+    m = re.match(r"^\s*(-?\d+)(.*)$", rid)
+    if m:
+        return (0, int(m.group(1)), m.group(2))
+    return (1, 0, rid)
+
+
+def get_pdb_keys_to_filter(pdb_key_path: Path, file_extension: str = ".txt") -> list[str]:
+    """The 4-letter PDB codes listed in the blacklist files under
+    ``pdb_key_path`` (a directory; every ``*{file_extension}`` below it)."""
+    files = list(Path(pdb_key_path).glob(f"**/*{file_extension}"))
+    if not files:
+        raise ValueError("Expected at least 1 pdb key file.")
+    keys: list[str] = []
+    for f in files:
+        for token in f.read_text().split():
+            keys.append(token[:4])
+    return keys

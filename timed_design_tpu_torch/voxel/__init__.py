@@ -1,4 +1,12 @@
-"""Voxel layer: codecs, residue frames (host numpy) and the voxelizer."""
+"""Voxel layer: codecs, residue frames (host numpy), the voxelizer, and the
+in-memory frame sets of ``td-predict``."""
 from .codec import Codec  # noqa: F401
 from .frames import FrameAtoms, frame_bases, structure_to_frame_atoms  # noqa: F401
 from .voxelize import voxelize_frame_atoms  # noqa: F401
+from .dataset import (  # noqa: F401
+    FrameBatchSource,
+    FrameSet,
+    create_flat_dataset_map,
+    make_frame_set,
+    voxelize_structure,
+)

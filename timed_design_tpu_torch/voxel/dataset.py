@@ -1,0 +1,239 @@
+"""In-memory frame sets: ``td-predict``'s frames straight from PDB files to
+the device, with no HDF5 file.
+
+The counterpart of ``timed_design_tpu/voxel/dataset.py`` without its HDF5
+writer, and of what ``timed_design_tpu/io/h5frames.py`` reads back:
+``create_flat_dataset_map`` and ``FrameBatchLoader``. A ``FrameSet`` holds
+the frame atoms of every structure (every NMR state with
+``voxelise_all_states``) on the host; ``FrameBatchSource`` voxelizes the
+rows of each batch on the device.
+
+Row order is the JAX package's. Its map comes from iterating the HDF5 tree,
+and HDF5 lists group names in byte order: structures by name, chains by id,
+both in byte order, then residues by ``_residue_sort_key``. So a structure
+written chain B first, or an NMR deposit with 11 or more states (``x_10``
+before ``x_2``), has rows in another order than the voxelizer's. Batches
+follow the map's entries, looked up by key, whatever map they are given.
+"""
+from __future__ import annotations
+
+import dataclasses
+import typing as t
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..constants import AA3, AA3_TO_INT, UNCOMMON_RESIDUE_DICT
+from ..io.datasetmap import DatasetMap, _residue_sort_key
+from ..structure import Structure, load_pdb
+from .codec import Codec
+from .frames import FrameAtoms, structure_to_frame_atoms
+from .voxelize import voxelize_frame_atoms
+
+
+def voxelize_structure(
+    structure: Structure,
+    codec: Codec,
+    voxels_per_side: int = 21,
+    frame_edge_length: float = 21.0,
+    gaussian: bool = True,
+    encode_cb: bool = True,
+    atom_filter: str = "backbone",
+    *,
+    device: torch.device | str,
+) -> tuple[torch.Tensor, FrameAtoms]:
+    """Structure -> (frames (R, V, V, V, C) float32 on ``device``, FrameAtoms)."""
+    fa = structure_to_frame_atoms(structure, codec, encode_cb=encode_cb, atom_filter=atom_filter)
+    frames = voxelize_frame_atoms(
+        fa, codec, voxels_per_side=voxels_per_side,
+        frame_edge_length=frame_edge_length, gaussian=gaussian, device=device,
+    )
+    return frames, fa
+
+
+def _align_states(fas: list[FrameAtoms], name: str) -> list[FrameAtoms]:
+    """Restrict every NMR state's rows to the (chain, residue) keys present
+    in ALL states, each state keeping its own order, so that row i of every
+    state is the same residue (the consensus averages states by position)."""
+    key_sets = [set(zip(fa.chain_ids, fa.residue_ids)) for fa in fas]
+    common = set.intersection(*key_sets)
+    if all(len(fa.labels) == len(common) for fa in fas):
+        return fas
+    dropped = sorted(set.union(*key_sets) - common)
+    warnings.warn(
+        f"{name}: aligning {len(fas)} NMR states on {len(common)} common "
+        f"residues; dropping {len(dropped)} residue(s) missing a valid "
+        f"frame in some state: "
+        + ", ".join(f"{c}{r}" for c, r in dropped[:8])
+        + ("..." if len(dropped) > 8 else "")
+    )
+    out = []
+    for fa in fas:
+        keep = [i for i, k in enumerate(zip(fa.chain_ids, fa.residue_ids)) if k in common]
+        out.append(dataclasses.replace(
+            fa,
+            ca=fa.ca[keep],
+            rot=fa.rot[keep],
+            valid=fa.valid[keep],
+            labels=[fa.labels[i] for i in keep],
+            chain_ids=[fa.chain_ids[i] for i in keep],
+            residue_ids=[fa.residue_ids[i] for i in keep],
+        ))
+    return out
+
+
+@dataclasses.dataclass
+class FrameSet:
+    """The frame atoms of a run's structures, by structure name, and their
+    codec; frames are 21^3 voxels of 1 A with Gaussian atoms, as
+    ``make_frame_dataset`` writes them by default. ``index`` maps each
+    (pdb, chain, residue id) key to its (structure, row); ``label_index``
+    holds each structure's 20-class labels (the JAX writer's
+    ``encoded_residue`` one-hots)."""
+
+    structures: list[tuple[str, FrameAtoms]]
+    codec: Codec
+
+    def __post_init__(self):
+        self.index: dict[tuple[str, str, str], tuple[int, int]] = {}
+        self.label_index: list[np.ndarray] = []
+        for s, (name, fa) in enumerate(self.structures):
+            for r, (chain, rid) in enumerate(zip(fa.chain_ids, fa.residue_ids)):
+                key = (name, chain, rid)
+                if key in self.index:
+                    raise ValueError(
+                        f"two frames have the key {key}: structure names "
+                        "(file names without .pdb/.gz) must be unique")
+                self.index[key] = (s, r)
+            self.label_index.append(np.array([AA3_TO_INT[l] for l in fa.labels], np.int64))
+
+    @property
+    def frame_shape(self) -> tuple[int, int, int, int]:
+        return (21, 21, 21, self.codec.n_channels)
+
+    def voxelize_rows(self, s: int, rows: list[int], device) -> torch.Tensor:
+        """Frames of rows ``rows`` of structure ``s`` on ``device``: every
+        atom of the structure, only these rows' frame centres."""
+        fa = self.structures[s][1]
+        if rows != list(range(len(fa.labels))):
+            fa = dataclasses.replace(fa, ca=fa.ca[rows], rot=fa.rot[rows])
+        return voxelize_frame_atoms(fa, self.codec, device=device)
+
+
+def make_frame_set(
+    structure_paths: t.Sequence[Path],
+    codec: Codec | str = "CNOCACB",
+    voxelise_all_states: bool = False,
+) -> FrameSet:
+    """PDB files -> FrameSet: what ``make_frame_dataset`` writes to HDF5 with
+    its default settings (backbone atoms, an imputed CB), kept in memory as
+    frame atoms; the frames themselves are made on the device, batch by
+    batch. ``voxelise_all_states`` keeps every NMR state as a structure
+    ``<pdb>_<state>``, the states aligned on their common residues."""
+    if isinstance(codec, str):
+        codec = Codec.from_string(codec)
+    structures: list[tuple[str, FrameAtoms]] = []
+    for path in structure_paths:
+        states = load_pdb(Path(path), all_states=voxelise_all_states)
+        if not isinstance(states, list):
+            states = [states]
+        fas = [structure_to_frame_atoms(s, codec) for s in states]
+        if len(fas) > 1:
+            fas = _align_states(fas, name=states[0].name)
+        structures += [(s.name, fa) for s, fa in zip(states, fas)]
+    return FrameSet(structures, codec)
+
+
+def _byte_order(name: str) -> bytes:
+    """HDF5's order of group names."""
+    return name.encode()
+
+
+def create_flat_dataset_map(
+    frame_set: FrameSet,
+    filter_list: t.Sequence[str] = (),
+    remove_blacklist_silently: bool = False,
+) -> DatasetMap:
+    """The per-residue map of a frame set, in the order the JAX package's
+    ``create_flat_dataset_map`` gives for the HDF5 file of the same
+    structures: names, then chains, in byte order; residues by
+    ``_residue_sort_key`` (ties in byte order). A structure whose 4-letter
+    code is in ``filter_list`` is removed with a warning, or raises unless
+    ``remove_blacklist_silently``; an uncommon label is remapped with a
+    warning, an unknown one raises."""
+    by_name: dict[str, dict[str, list[tuple[str, str]]]] = {}
+    for name, fa in frame_set.structures:
+        chains = by_name.setdefault(name, {})
+        for chain, rid, label in zip(fa.chain_ids, fa.residue_ids, fa.labels):
+            chains.setdefault(chain, []).append((rid, label))
+    entries: list[tuple[str, str, str, str]] = []
+    for name in sorted(by_name, key=_byte_order):
+        if name[:4] in filter_list:
+            if remove_blacklist_silently:
+                warnings.warn(f"PDB code {name} was found in benchmark set; removed.")
+                continue
+            raise ValueError(
+                f"PDB code {name} is blacklisted. Pass "
+                f"remove_blacklist_silently=True to skip it instead."
+            )
+        chains = by_name[name]
+        for chain in sorted(chains, key=_byte_order):
+            residues = sorted(chains[chain], key=lambda e: _byte_order(e[0]))
+            for rid, label in sorted(residues, key=lambda e: _residue_sort_key(e[0])):
+                if label not in AA3:
+                    if label not in UNCOMMON_RESIDUE_DICT:
+                        raise ValueError(f"Expected natural amino acid, but got {label}.")
+                    warnings.warn(f"{label} is not a standard residue; converted to "
+                                  f"{UNCOMMON_RESIDUE_DICT[label]}.")
+                    label = UNCOMMON_RESIDUE_DICT[label]
+                entries.append((name, chain, rid, label))
+    return DatasetMap(entries=entries)
+
+
+class FrameBatchSource:
+    """``(X, y, n_valid)`` batches of ``batch_size`` rows from ``start_batch``
+    on, the rows following the map's entries, looked up by key: X (B, V, V,
+    V, C) float32 frames voxelized on ``device`` (rows past ``n_valid`` are
+    zero), y (B, 20) float32 one-hot labels on the host.
+
+    Each run of consecutive entries from one structure is voxelized in one
+    call, with only its rows as frame centres, so the device holds a batch
+    of frames at a time, never the whole input. An entry absent from the
+    frame set raises KeyError."""
+
+    def __init__(self, frame_set: FrameSet, dmap: DatasetMap, batch_size: int,
+                 start_batch: int = 0, *, device: torch.device | str):
+        if not dmap.is_old:
+            raise ValueError("FrameBatchSource needs a per-residue dataset map")
+        self.frame_set = frame_set
+        self.entries = dmap.entries
+        self.batch_size = batch_size
+        self.start_batch = start_batch
+        self.device = torch.device(device)
+        self.n_batches = -(-len(self.entries) // batch_size)
+
+    def _batch(self, index: int) -> tuple[torch.Tensor, np.ndarray, int]:
+        fs, B = self.frame_set, self.batch_size
+        batch = self.entries[index * B : (index + 1) * B]
+        n = len(batch)
+        X = torch.empty((B, *fs.frame_shape), dtype=torch.float32, device=self.device)
+        X[n:] = 0
+        y = np.zeros((B, 20), np.float32)
+        # runs of consecutive entries of one structure: (structure, start, rows)
+        runs: list[tuple[int, int, list[int]]] = []
+        for i, (pdb, chain, rid, _) in enumerate(batch):
+            s, r = fs.index[(pdb, chain, rid)]
+            y[i, fs.label_index[s][r]] = 1.0
+            if runs and runs[-1][0] == s:
+                runs[-1][2].append(r)
+            else:
+                runs.append((s, i, [r]))
+        for s, start, rows in runs:
+            X[start : start + len(rows)] = fs.voxelize_rows(s, rows, self.device)
+        return X, y, n
+
+    def __iter__(self) -> t.Iterator[tuple[torch.Tensor, np.ndarray, int]]:
+        for index in range(self.start_batch, self.n_batches):
+            yield self._batch(index)

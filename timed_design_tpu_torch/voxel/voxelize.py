@@ -28,15 +28,18 @@ def voxelize_frame_atoms(
     """Voxelize one structure on ``device`` (named by the caller: there is
     no default); returns float32 frames there.
 
-    The atom and frame arrays cross to the device as one float32 buffer:
-    one copy (and one wait on the device's stream) per structure."""
+    The atom and frame arrays cross to the device as one float32 buffer,
+    one copy per structure; on a card it goes through pinned memory, so the
+    copy queues behind the device's work instead of waiting for it."""
     prop = codec.property_channel
     A, R = fa.atom_channel.shape[0], fa.ca.shape[0]
-    host = np.concatenate([
+    host = torch.from_numpy(np.concatenate([
         fa.atoms_xyz.ravel(), fa.atom_channel, fa.atom_sigma, fa.atom_prop,
         fa.ca.ravel(), fa.rot.ravel(),
-    ]).astype(np.float32)  # channel ids are small integers, exact in float32
-    xyz, channel, sigma, atom_prop, ca, rot = torch.from_numpy(host).to(device).split(
+    ]).astype(np.float32))  # channel ids are small integers, exact in float32
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    xyz, channel, sigma, atom_prop, ca, rot = host.to(device, non_blocking=True).split(
         [3 * A, A, A, A, 3 * R, 9 * R])
     return voxelize_matmul(
         xyz.view(A, 3), channel.to(torch.int32), sigma, atom_prop,
