@@ -29,7 +29,13 @@ an output is wrong:
   - ``td-predict --voxelize``: TIMED and TIMED_rotamer at registry widths,
     batch 512, bfloat16 and float32, over 1ubq, the multichain and a
     two-state NMR file, in-process and once as a subprocess; TIMED_rotamer
-    on 1ubq in float32 held to the CPU. It reaches no kernel of the port.
+    on 1ubq in float32 held to the CPU. It reaches no kernel of the port;
+  - training (``train/``) on the same 988 frames, shuffled, batch 256: one
+    float32 train step of each family at registry widths on the card
+    against the CPU; registry TIMED trained by ``fit`` in bfloat16 and
+    float32 (ms per step, frames/s, device busy share, FLOP share); TIMED
+    overfit on 1ubq, its checkpoint through ``td-predict --voxelize``. It
+    reaches no kernel of the port either.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -40,6 +46,7 @@ from __future__ import annotations
 import gzip
 import json
 import math
+import shutil
 import subprocess
 import sys
 import threading
@@ -423,6 +430,15 @@ def stages(timings: dict) -> str:
     return ", ".join(f"{k} {timings[k] * 1e3:.1f}" for k in STAGES)
 
 
+def busy_us(intervals) -> float:
+    """Device busy time (us): the union of (start, end, ...) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b, *_ in sorted(intervals):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
+
+
 def profile_request(designer, pdb: str, reps: int = 10) -> None:
     """Where one warm 1ubq design with 100 samples spends its time: the
     server's stage medians over ``reps`` requests, then one request under
@@ -454,10 +470,8 @@ def profile_request(designer, pdb: str, reps: int = 10) -> None:
         log("profile: one request: the profiler returned no device events; not measured")
         return
     wall_us = wall[-1]
-    busy, end, by_name = 0.0, float("-inf"), {}
+    busy, by_name = busy_us(dev), {}
     for a, b, name in dev:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     kernels = sum(1 for *_, n in dev if not n.startswith(("Memcpy", "Memset")))
     log(f"profile: one request, wall {wall_us / 1e3:.2f} ms, device busy "
@@ -688,7 +702,6 @@ def check_td_sample() -> dict:
     import dataclasses
     import json
     import os
-    import shutil
     import tempfile
 
     import numpy as np
@@ -830,6 +843,17 @@ def nmr_pdb(text: str, states: int = 2) -> str:
     return "\n".join(out + ["END"]) + "\n"
 
 
+def write_structures(inputs: Path) -> None:
+    """The td-predict and train phases' PDB files in ``inputs``: 1ubq, the
+    760-residue multichain and a two-state NMR file, 988 frames with every
+    NMR state a structure."""
+    inputs.mkdir()
+    text = gzip.decompress(UBQ.read_bytes()).decode()
+    shutil.copy(UBQ, inputs / "1ubq.pdb1.gz")
+    (inputs / "mult.pdb").write_text(multichain_pdb(text))
+    (inputs / "2nmr.pdb").write_text(nmr_pdb(text))
+
+
 PREDICT_STRUCTURAL = ("datasetmap.txt", "encoded_labels.csv", "dataset.fasta")
 
 
@@ -872,7 +896,6 @@ def check_td_predict() -> dict:
     probabilities within 1e-4, the files without a probability byte-equal.
     This path reaches no TPU kernel: the sampling kernel's counts stay 0."""
     import os
-    import shutil
     import tempfile
 
     import numpy as np
@@ -885,11 +908,7 @@ def check_td_predict() -> dict:
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_td_predict_", dir=ROOT))
     try:
         inputs = work / "in"
-        inputs.mkdir()
-        text = gzip.decompress(UBQ.read_bytes()).decode()
-        shutil.copy(UBQ, inputs / "1ubq.pdb1.gz")
-        (inputs / "mult.pdb").write_text(multichain_pdb(text))
-        (inputs / "2nmr.pdb").write_text(nmr_pdb(text))
+        write_structures(inputs)
 
         def run(model, dtype, out, path=inputs, dev=device, batch=512, nmr=True):
             rotamer = model.endswith("rotamer")
@@ -973,6 +992,292 @@ def check_td_predict() -> dict:
             "f32_card_vs_cpu_max_abs_dp": err, "phase_s": phase_s}
 
 
+TRAIN_FAMILIES = ("TIMED", "ProDCoNN", "DenseNet", "DenseCPD")
+# Dense bf16 peak of an H100 SXM (NVIDIA's data sheet, no sparsity), and the
+# float32 peak outside the tensor cores (the float32 run has TF32 off)
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+
+def timed_forward_flops(module) -> float:
+    """Multiply-adds x 2 of one TIMED forward on a 21^3 frame: the 3^3 convs
+    of the blocks and the 1^3 head; BatchNorm, ELU and pooling not counted."""
+    convs = [b.conv for b in module.blocks] + [module.head]
+    return sum(2 * c.weight[0].numel() * c.out_channels * 21 ** 3 for c in convs)
+
+
+def one_train_step(module, device, x, y, threads: int | None = None) -> dict:
+    """One make_train_step of ``module`` on ``device`` (on the CPU with
+    ``threads`` threads): the loss, and the gradients and floating-point
+    buffers (BatchNorm running statistics) after it, on the host."""
+    import torch
+
+    from timed_design_tpu_torch.train import init_train_state, make_train_step
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(threads or n)
+    try:
+        state = init_train_state(module, device=device)
+        t0 = time.perf_counter()
+        loss = float(make_train_step(module, state.optimizer)(x.to(device), y.to(device))["loss"])
+        secs = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(n)
+    return {"loss": loss, "seconds": secs,
+            "grads": {k: p.grad.cpu() for k, p in module.named_parameters()},
+            "buffers": {k: b.cpu() for k, b in module.named_buffers() if b.is_floating_point()}}
+
+
+def step_errors(a: dict, b: dict) -> dict:
+    """``a`` against ``b``: the loss (relative), the largest gradient error
+    as a share of ``b``'s largest |g| (and its leaf), and the largest error
+    of a running statistic relative to max(1, |value|)."""
+    scale = max(float(g.abs().max()) for g in b["grads"].values())
+    grad = {k: float((a["grads"][k] - g).abs().max()) / scale for k, g in b["grads"].items()}
+    worst = max(grad, key=grad.get)
+    bn = max((float((a["buffers"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+              for k, v in b["buffers"].items()), default=0.0)
+    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]), "grad": grad[worst],
+            "grad_leaf": worst, "bn": bn}
+
+
+# A train step on the card against the CPU, float32 with TF32 off, on 32 of
+# the batch's real frames: the loss to 1e-5 relative, every gradient element
+# to 5e-3 of the largest |g|, the running statistics to 1e-5, or, where the
+# CPU's own float32 result moves more than that when only its thread count
+# changes (the order of its sums), to 4x that move. A weight's gradient sums
+# 32 x 21^3 positions in float32, and a bias ahead of a BatchNorm has a true
+# gradient of 0, or nearly: registry TIMED's card and CPU gradients differ
+# by 1.4e-3 of the largest |g| on 16 random frames (tests/test_torch_train.py,
+# on the card). DenseNet at registry widths is conditioned worse: the CPU
+# on half its threads moves its loss by 1.06e-5 and a gradient by 0.029 of
+# the largest |g|.
+STEP_TOL = {"loss": 1e-5, "grad": 5e-3, "bn": 1e-5}
+
+
+def train_step_parity(name: str, x, y) -> dict:
+    """One train step of registry ``name`` (dropout off) on the card and on
+    CPU copies from the same initial weights: the card against the CPU, and
+    the CPU against itself on half its threads (its float32 noise)."""
+    import copy
+
+    import torch
+
+    from timed_design_tpu_torch.models import MODEL_REGISTRY
+
+    torch.manual_seed(SEED)
+    module = MODEL_REGISTRY[name].build(**({"dropout_rate": 0.0} if name in ("TIMED", "ProDCoNN")
+                                           else {}))
+    cpu = one_train_step(copy.deepcopy(module), "cpu", x, y)
+    half = one_train_step(copy.deepcopy(module), "cpu", x, y,
+                          threads=max(1, torch.get_num_threads() // 2))
+    card = one_train_step(module, "cuda", x, y)
+    err, noise = step_errors(card, cpu), step_errors(half, cpu)
+    tol = {k: max(v, 4 * noise[k]) for k, v in STEP_TOL.items()}
+    log(f"train {name} float32 step, 32 frames, card against CPU: loss {card['loss']:.6f} (rel "
+        f"{err['loss']:.2e}, CPU on half its threads {noise['loss']:.2e}); gradients max |dg| / "
+        f"max |g| = {err['grad']:.2e} ({err['grad_leaf']}; CPU on half its threads "
+        f"{noise['grad']:.2e}); running statistics {err['bn']:.2e} ({noise['bn']:.2e}); "
+        f"CPU step {cpu['seconds']:.2f} s, card step {card['seconds'] * 1e3:.1f} ms (first)")
+    for k in STEP_TOL:
+        assert err[k] <= tol[k], f"{name}: {k} {err[k]:.3g} from the CPU's (tolerance {tol[k]:.3g})"
+    return {"card_vs_cpu": err, "cpu_half_threads_vs_cpu": noise, "tolerance": tol,
+            "cpu_step_s": cpu["seconds"]}
+
+
+def train_throughput(source, dtype) -> dict:
+    """Registry TIMED trained by ``fit`` over ``source`` (988 frames, batch
+    256, shuffled): one epoch to warm up, then 3 epochs timed. ms per step
+    from CUDA events around each train step (median of the 12 warm steps,
+    and of the 9 full 256-frame ones), frames/s from the host clock over
+    the 3 epochs (ending in a synchronize), and the device busy share of a
+    4th epoch under torch.profiler. fit reads the step's metrics at step 0
+    of each call only (log_every), so no step but that one waits on the
+    host."""
+    import statistics
+
+    import torch
+
+    import timed_design_tpu_torch.train.train as train_mod
+    from timed_design_tpu_torch.models import MODEL_REGISTRY
+
+    torch.manual_seed(SEED)
+    module = MODEL_REGISTRY["TIMED"].build(compute_dtype=dtype)
+    events: list = []
+    make_step = train_mod.make_train_step
+
+    def timed_make_step(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(x, y, generator=None):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(x, y, generator)
+            e1.record()
+            events.append((e0, e1, x.shape[0]))
+            return out
+
+        return run
+
+    def epochs(n):
+        return train_mod.fit(module, source, n_classes=20, epochs=n, log_every=10_000,
+                             device="cuda")
+
+    train_mod.make_train_step = timed_make_step
+    try:
+        epochs(1)
+        events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = epochs(3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b, _ in events]
+        full_ms = [ms for ms, (*_, n) in zip(step_ms, events) if n == source.batch_size]
+        walls = []
+
+        def one_epoch():
+            t1 = time.perf_counter()
+            epochs(1)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e6)
+
+        dev = [(e.time_range.start, e.time_range.end) for e in device_events(one_epoch)]
+    finally:
+        train_mod.make_train_step = make_step
+    frames = 3 * len(source.entries)
+    fwd = timed_forward_flops(module)
+    out = {"steps": len(step_ms), "step_ms_median": statistics.median(step_ms),
+           "full_step_ms_median": statistics.median(full_ms), "frames_per_s": frames / wall,
+           "wall_s": wall, "busy_share": busy_us(dev) / walls[-1] if dev else None,
+           "forward_gflop_per_frame": fwd / 1e9, "step_tflop": 3 * fwd * source.batch_size / 1e12,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "fit_steps": state.step}
+    achieved = 3 * fwd * out["frames_per_s"]
+    out["tflop_per_s"] = achieved / 1e12
+    out["bf16_peak_share"] = achieved / BF16_FLOPS
+    shares = f"{out['bf16_peak_share']:.4f} of the dense bf16 peak"
+    if dtype == torch.float32:
+        out["fp32_peak_share"] = achieved / FP32_FLOPS
+        shares += f", {out['fp32_peak_share']:.3f} of the float32 peak"
+    busy = "not measured" if out["busy_share"] is None else f"{out['busy_share']:.3f}"
+    log(f"train TIMED {str(dtype).split('.')[-1]}, 988 frames, batch 256, 3 warm epochs: "
+        f"{out['step_ms_median']:.2f} ms/step median of {len(step_ms)} "
+        f"({out['full_step_ms_median']:.2f} ms per full 256-frame step), "
+        f"{out['frames_per_s']:.0f} frames/s, device busy share over one epoch {busy}; "
+        f"{out['forward_gflop_per_frame']:.3f} GFLOP a frame forward, a step 3x: "
+        f"{out['step_tflop']:.2f} TFLOP per 256 frames, {achieved / 1e12:.1f} TFLOP/s = "
+        f"{shares}; peak memory {out['peak_mem_gb']:.2f} GB; {gpu_name_and_power()}")
+    return out
+
+
+def check_train() -> dict:
+    """Training on the card, the port's train/ fed by FrameBatchSource:
+    the frame set of the td-predict phase (988 frames), shuffled, batch 256.
+    (1) One float32 train step of each of TIMED, ProDCoNN, DenseNet and
+    DenseCPD at registry widths on the first 32 frames of a batch, dropout
+    off, on the card and on a CPU copy: the loss, the gradients and the
+    BatchNorm running statistics (train_step_parity, STEP_TOL). (2) Registry TIMED trained by ``fit`` in bfloat16
+    and float32 (train_throughput). (3) Registry TIMED (bn_momentum 0.9, lr
+    3e-3, bfloat16) overfit on 1ubq's 76 frames until the train top-1 is at
+    least 0.9, 600 steps at most; its checkpoint, saved by save_checkpoint,
+    through td-predict --voxelize on the card: argmax recovery of at least
+    0.9 against dataset.fasta. Training reaches no TPU kernel: the sampling
+    kernel's counts stay 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.cli.predict import main as predict_main
+    from timed_design_tpu_torch.models import MODEL_REGISTRY
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.train import (
+        evaluate,
+        init_train_state,
+        make_eval_step,
+        make_train_step,
+        save_checkpoint,
+    )
+    from timed_design_tpu_torch.voxel import FrameBatchSource, create_flat_dataset_map, make_frame_set
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_train_", dir=ROOT))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+    try:
+        inputs = work / "in"
+        write_structures(inputs)
+        fs = make_frame_set(sorted(inputs.glob("*.pdb*")), voxelise_all_states=True)
+        source = FrameBatchSource(fs, create_flat_dataset_map(fs), 256, device=dev, shuffle=True,
+                                  shuffle_seed=0)
+        assert len(source.entries) == 988 and source.n_batches == 4
+
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        X, y, _ = next(iter(source))
+        x32, y32 = X[:32], torch.from_numpy(y[:32])
+        parity = {name: train_step_parity(name, x32, y32) for name in TRAIN_FAMILIES}
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        throughput = {str(dt).split(".")[-1]: train_throughput(source, dt)
+                      for dt in (torch.bfloat16, torch.float32)}
+
+        fs1 = make_frame_set([inputs / "1ubq.pdb1.gz"])
+        dmap1 = create_flat_dataset_map(fs1)
+        ubq = FrameBatchSource(fs1, dmap1, 76, device=dev, shuffle=True, shuffle_seed=0)
+        ubq_eval = FrameBatchSource(fs1, dmap1, 76, device=dev)
+        torch.manual_seed(SEED)
+        module = MODEL_REGISTRY["TIMED"].build(compute_dtype=torch.bfloat16, bn_momentum=0.9)
+        state = init_train_state(module, 3e-3, device=dev)
+        step = make_train_step(module, state.optimizer)
+        eval_step = make_eval_step(module)
+        generator = torch.Generator(device=dev).manual_seed(SEED)
+        top1 = eval_top1 = 0.0
+        t0 = time.perf_counter()
+        while min(top1, eval_top1) < 0.9:
+            assert state.step < 600, (f"the overfit reached 600 steps at train top-1 {top1:.3f}, "
+                                      f"evaluation-mode top-1 {eval_top1:.3f}")
+            for Xb, yb, n in ubq:
+                metrics = step(Xb[:n], torch.from_numpy(yb[:n]).to(dev), generator)
+                state.step += 1
+            if state.step % 10 == 0:
+                top1 = float(metrics["top1"])
+                eval_top1 = evaluate(module, ubq_eval, step_fn=eval_step)["top1"]
+                if state.step % 50 == 0:
+                    log(f"train overfit step {state.step}: loss {float(metrics['loss']):.4f}, "
+                        f"train top-1 {top1:.3f}, evaluation-mode top-1 {eval_top1:.3f}")
+        overfit_s = time.perf_counter() - t0
+        ckpt = work / "timed_overfit.npz"
+        save_checkpoint(state, ckpt)
+        out = work / "predict"
+        predict_main(["--voxelize", "--path_to_dataset", str(inputs / "1ubq.pdb1.gz"),
+                      "--path_to_model", f"TIMED@{ckpt}", "--compute_dtype", "bfloat16",
+                      "--device", "cuda", "--path_to_output", str(out),
+                      "--path_to_datasetmap", str(out / "datasetmap.txt")])
+        check_td_predict_outputs(out, "TIMED", rotamer=False, nmr=False)
+        designed = (out / "TIMED.fasta").read_text().splitlines()[1::2]
+        native = (out / "dataset.fasta").read_text().splitlines()[1::2]
+        recovery = float(np.mean([a == b for d, r in zip(designed, native) for a, b in zip(d, r)]))
+        log(f"train overfit: TIMED (registry widths, bf16, bn_momentum 0.9, lr 3e-3) on 1ubq's 76 "
+            f"frames: train top-1 {top1:.3f}, evaluation-mode top-1 {eval_top1:.3f} after "
+            f"{state.step} steps in {overfit_s:.1f} s, loss "
+            f"{float(metrics['loss']):.4f}; td-predict --voxelize from its checkpoint: recovery "
+            f"{recovery:.3f} against dataset.fasta")
+        assert recovery >= 0.9, f"recovery {recovery:.3f} from the overfit checkpoint"
+        launches = sample_inverse_cdf.launches + sample_inverse_cdf_batched.launches
+        assert launches == 0, "training launched the sampling kernel"
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"train: phase passed in {phase_s:.1f} s; launches of the sampling kernel: 0")
+    return {"launches": launches, "parity": parity, "throughput": throughput,
+            "overfit": {"steps": state.step, "top1": top1, "seconds": overfit_s,
+                        "recovery": recovery}, "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -991,12 +1296,15 @@ def main() -> int:
     td_sample = check_td_sample()
     families = check_families()
     td_predict = check_td_predict()
+    train = check_train()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
-                    "td_predict": td_predict}))
+                    "td_predict": td_predict, "train": train}))
     main_shape = kernel["shapes"][0]
-    # td-predict reaches no TPU kernel (voxelizer and convs are plain torch)
+    # td-predict and training reach no TPU kernel (voxelizer and convs are
+    # plain torch)
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
-                "families": families["launches"], "td_predict": td_predict["launches"]}
+                "families": families["launches"], "td_predict": td_predict["launches"],
+                "train": train["launches"]}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",

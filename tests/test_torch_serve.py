@@ -252,7 +252,7 @@ def test_serial_and_ensemble_designers(ckpts, ubq_pdb_gz):
 
 _HYGIENE = """
 import sys
-for name in ("timed_design_tpu", "jax", "flax", "h5py", "ml_dtypes", "matplotlib"):
+for name in ("timed_design_tpu", "jax", "flax", "optax", "h5py", "ml_dtypes", "matplotlib"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import runpy
 sys.argv = ["serve", "--model", sys.argv[1], "--port", "0", "--batch_size", "80",
@@ -263,8 +263,8 @@ runpy.run_module("timed_design_tpu_torch.cli.serve", run_name="__main__")
 
 def test_serving_path_imports_no_jax(ckpts, pdb_text):
     """The server starts and answers /design with the JAX package, jax,
-    flax, h5py, ml_dtypes and matplotlib unimportable, as on a machine
-    without them."""
+    flax, optax, h5py, ml_dtypes and matplotlib unimportable, as on a
+    machine without them."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-c", _HYGIENE, f"TIMED@{ckpts['TIMED']}"],
@@ -283,6 +283,36 @@ def test_serving_path_imports_no_jax(ckpts, pdb_text):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+_TRAIN_HYGIENE = """
+import sys
+for name in ("timed_design_tpu", "jax", "flax", "optax", "h5py", "ml_dtypes", "matplotlib"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import torch
+from timed_design_tpu_torch.models import TIMED
+from timed_design_tpu_torch.train import fit, load_checkpoint_params, save_checkpoint
+from timed_design_tpu_torch.voxel import FrameBatchSource, create_flat_dataset_map, make_frame_set
+
+fs = make_frame_set([sys.argv[1]])
+source = FrameBatchSource(fs, create_flat_dataset_map(fs), 40, device="cpu", shuffle=True)
+torch.manual_seed(0)
+state = fit(TIMED(filters=(4,)), source, n_classes=20, log_every=1, device="cpu")
+save_checkpoint(state, sys.argv[2], build_kwargs={"filters": (4,)})
+print("trained", state.step, "steps;", len(load_checkpoint_params(sys.argv[2])["params"]), "leaves")
+"""
+
+
+def test_training_path_imports_no_jax(tmp_path, ubq_pdb_gz):
+    """Two steps of the port's fit over 1ubq's frames (shuffled, batch 40)
+    and its npz checkpoint, with the JAX package, jax, flax, optax, h5py,
+    ml_dtypes and matplotlib unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_HYGIENE, str(ubq_pdb_gz), str(tmp_path / "ckpt.npz")],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "step 1: loss=" in proc.stdout and "trained 2 steps; 2 leaves" in proc.stdout
 
 
 def test_default_device_is_the_card():

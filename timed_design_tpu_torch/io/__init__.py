@@ -9,6 +9,7 @@ from .datasetmap import (  # noqa: F401
     load_datasetmap,
     save_datasetmap,
     save_srb_datasetmap,
+    split_dataset_map,
 )
 from .decode import DecodedPredictions, consensus_running_average, extract_sequences  # noqa: F401
 from .writers import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Datasetmap formats: the port's copy of ``timed_design_tpu/io/datasetmap.py``
-(what ``td-sample`` and ``td-predict`` use of it), with the residue order and
-the blacklist reader of ``timed_design_tpu/io/h5frames.py``.
+(what ``td-sample``, ``td-predict`` and training use of it), with the residue
+order and the blacklist reader of ``timed_design_tpu/io/h5frames.py``.
 
   * "old": CSV rows ``pdb,chain,residue_id,label``, one row per residue;
   * "new"/SRB: 3 header lines (``ignore_uncommon False``, ``include_pdbs``,
@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 import re
 from pathlib import Path
+
+import numpy as np
 
 SRB_HEADER = "ignore_uncommon False\ninclude_pdbs\n##########\n"
 
@@ -92,6 +94,40 @@ def save_srb_datasetmap(dmap: DatasetMap, model_name: str, path_to_output: Path)
         for pdb_chain, count in dmap.to_counts():
             f.write(f"{pdb_chain} {count}\n")
     return path
+
+
+def split_dataset_map(
+    dmap: DatasetMap, val_fraction: float, seed: int = 0
+) -> tuple[DatasetMap, DatasetMap]:
+    """Structure-level train/validation split of a per-residue map: whole
+    structures go to one side, a trailing NMR state suffix ``_<digits>``
+    collapsed to its parent so every state of one deposit stays together.
+
+    ``round(n_structures * val_fraction)`` of the sorted parents (at least 1
+    when the fraction is > 0) go to validation, chosen by
+    ``np.random.default_rng(seed).permutation``; each side keeps the map's
+    row order. ``val_fraction`` 0 returns the map itself and an empty one."""
+    if not dmap.is_old:
+        raise ValueError("split_dataset_map needs a per-residue dataset map")
+    if not 0.0 <= val_fraction < 1.0:
+        raise ValueError(f"val_fraction must be in [0, 1), got {val_fraction}")
+
+    def parent(pdb: str) -> str:
+        return re.sub(r"_\d+$", "", pdb)
+
+    structures = sorted({parent(p) for p, _, _, _ in dmap.entries})
+    if val_fraction == 0.0 or not structures:
+        return dmap, DatasetMap(entries=[])
+    n_val = max(1, round(len(structures) * val_fraction))
+    if n_val >= len(structures):
+        raise ValueError(
+            f"val_fraction={val_fraction} leaves no training structures "
+            f"({n_val} of {len(structures)} would go to validation)"
+        )
+    order = np.random.default_rng(seed).permutation(len(structures))
+    val_set = {structures[i] for i in order[:n_val]}
+    return (DatasetMap(entries=[e for e in dmap.entries if parent(e[0]) not in val_set]),
+            DatasetMap(entries=[e for e in dmap.entries if parent(e[0]) in val_set]))
 
 
 def _residue_sort_key(rid: str) -> tuple:

@@ -6,6 +6,9 @@ from .convert import (  # noqa: F401
     load_checkpoint_build_kwargs,
     load_checkpoint_params,
     prodconn_variables_to_state_dict,
+    state_dict_to_densenet_variables,
+    state_dict_to_flax_variables,
+    state_dict_to_prodconn_variables,
 )
 from .densenet import DenseNet3D, densecpd, densenet  # noqa: F401
 from .prodconn import ProDCoNN, prodconn  # noqa: F401

@@ -5,7 +5,9 @@ the PyTorch module's ``state_dict``: TIMED
 (``flax_variables_to_state_dict``), ProDCoNN and DenseNet/DenseCPD. Conv
 kernels go from DHWIO to OIDHW, Dense kernels from (in, out) to (out, in),
 BatchNorm ``scale/bias/mean/var`` to ``weight/bias/running_mean/
-running_var``. The npz readers are the counterparts of
+running_var``. The inverse converters (``state_dict_to_*``) map a
+``state_dict`` back to Flax's names and layouts, for the checkpoints the
+port's trainer writes. The npz readers are the counterparts of
 ``load_checkpoint_params`` / ``load_checkpoint_build_kwargs``
 (timed_design_tpu/train/train.py), reimplemented because that module imports
 JAX; they read the same flat ``params/...`` and ``batch_stats/...`` files.
@@ -105,6 +107,77 @@ def densenet_variables_to_state_dict(variables: dict) -> dict[str, torch.Tensor]
     _bn(sd, "bn.", params["BatchNorm_0"], stats["BatchNorm_0"])
     _dense(sd, "head.", params["Dense_0"])
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _conv_to_flax(sd: dict, prefix: str) -> dict:
+    """PyTorch OIDHW weight -> Flax DHWIO kernel, and the bias."""
+    k = sd[prefix + "weight"].detach().cpu().numpy()
+    return {"kernel": np.ascontiguousarray(np.transpose(k, (2, 3, 4, 1, 0))),
+            "bias": _np(sd[prefix + "bias"])}
+
+
+def _dense_to_flax(sd: dict, prefix: str) -> dict:
+    return {"kernel": np.ascontiguousarray(_np(sd[prefix + "weight"]).T),
+            "bias": _np(sd[prefix + "bias"])}
+
+
+def _bn_to_flax(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """(params {scale, bias}, batch_stats {mean, var})."""
+    return ({"scale": _np(sd[prefix + "weight"]), "bias": _np(sd[prefix + "bias"])},
+            {"mean": _np(sd[prefix + "running_mean"]), "var": _np(sd[prefix + "running_var"])})
+
+
+def state_dict_to_flax_variables(sd: dict) -> dict:
+    """TIMED ``state_dict`` -> Flax ``{"params", "batch_stats"}`` (numpy
+    leaves): the inverse of ``flax_variables_to_state_dict``."""
+    params: dict = {}
+    stats: dict = {}
+    i = 0
+    while f"blocks.{i}.conv.weight" in sd:
+        bn_p, bn_s = _bn_to_flax(sd, f"blocks.{i}.bn.")
+        params[f"ConvBlock_{i}"] = {"Conv_0": _conv_to_flax(sd, f"blocks.{i}.conv."),
+                                    "BatchNorm_0": bn_p}
+        stats[f"ConvBlock_{i}"] = {"BatchNorm_0": bn_s}
+        i += 1
+    params["Conv_0"] = _conv_to_flax(sd, "head.")
+    return {"params": params, "batch_stats": stats}
+
+
+def state_dict_to_prodconn_variables(sd: dict) -> dict:
+    """ProDCoNN ``state_dict`` -> Flax ``{"params", "batch_stats"}`` (no
+    BatchNorm, so ``batch_stats`` is empty): the inverse of
+    ``prodconn_variables_to_state_dict``."""
+    params = {f"Conv_{i}": _conv_to_flax(sd, f"convs.{i}.") for i in range(4)}
+    params.update({f"Dense_{i}": _dense_to_flax(sd, f"dense.{i}.") for i in range(2)})
+    return {"params": params, "batch_stats": {}}
+
+
+def state_dict_to_densenet_variables(sd: dict) -> dict:
+    """``DenseNet3D`` ``state_dict`` -> Flax ``{"params", "batch_stats"}``:
+    the inverse of ``densenet_variables_to_state_dict``."""
+    params: dict = {"Conv_0": _conv_to_flax(sd, "stem.")}
+    stats: dict = {}
+    k = 0
+    while f"layers.{k}.conv0.weight" in sd:
+        node, st = params.setdefault(f"_DenseLayer_{k}", {}), stats.setdefault(f"_DenseLayer_{k}", {})
+        for j in range(2):
+            node[f"BatchNorm_{j}"], st[f"BatchNorm_{j}"] = _bn_to_flax(sd, f"layers.{k}.bn{j}.")
+            node[f"Conv_{j}"] = _conv_to_flax(sd, f"layers.{k}.conv{j}.")
+        k += 1
+    i = 0
+    while f"transitions.{i}.conv.weight" in sd:
+        bn_p, bn_s = _bn_to_flax(sd, f"transitions.{i}.bn.")
+        params[f"_Transition_{i}"] = {"BatchNorm_0": bn_p,
+                                      "Conv_0": _conv_to_flax(sd, f"transitions.{i}.conv.")}
+        stats[f"_Transition_{i}"] = {"BatchNorm_0": bn_s}
+        i += 1
+    params["BatchNorm_0"], stats["BatchNorm_0"] = _bn_to_flax(sd, "bn.")
+    params["Dense_0"] = _dense_to_flax(sd, "head.")
+    return {"params": params, "batch_stats": stats}
 
 
 def load_checkpoint_params(path) -> dict:

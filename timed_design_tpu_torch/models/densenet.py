@@ -15,15 +15,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import cast_conv, global_average_pool_3d
+from .layers import BatchNorm3d, cast_conv, global_average_pool_3d
 
 
-def _bn(features: int) -> nn.BatchNorm3d:
+def _bn(features: int) -> BatchNorm3d:
     # Keras/Flax momentum 0.99 is PyTorch momentum 0.01
-    return nn.BatchNorm3d(features, eps=1e-3, momentum=0.01)
+    return BatchNorm3d(features, eps=1e-3, momentum=0.01)
 
 
-def _bn_relu(bn: nn.BatchNorm3d, x: torch.Tensor) -> torch.Tensor:
+def _bn_relu(bn: BatchNorm3d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm and ReLU in float32, back to ``x``'s dtype."""
     return F.relu(bn(x.to(torch.float32))).to(x.dtype)
 
@@ -81,8 +81,13 @@ class DenseNet3D(nn.Module):
         self.bn = _bn(c)
         self.head = nn.Linear(c, n_classes)
 
-    def forward(self, x: torch.Tensor, logits: bool = False) -> torch.Tensor:
-        """(B, 21, 21, 21, C) NDHWC frames -> (B, n_classes) float32."""
+    def forward(
+        self, x: torch.Tensor, logits: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """(B, 21, 21, 21, C) NDHWC frames -> (B, n_classes) float32.
+        ``generator`` is unused (DenseNet has no dropout); it is taken so
+        that every family trains through one call."""
         x = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3)  # NCDHW view
         x = cast_conv(self.stem, x, padding=1)
         layers = iter(self.layers)

@@ -13,6 +13,28 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with Flax's training statistics.
+
+    In training the batch is normalised with its biased variance, and the
+    running mean and variance move towards the batch mean and that same
+    biased variance: ``running = m * running + (1 - m) * batch`` with
+    Flax's momentum m (``momentum`` here is ``1 - m``, PyTorch's
+    convention). ``nn.BatchNorm3d`` would move ``running_var`` towards the
+    unbiased variance, n/(n-1) times larger. In evaluation it is
+    ``nn.BatchNorm3d`` unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3, 4), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
 class ConvBlock(nn.Module):
     """[Conv3D 3x3x3 'same' -> ELU -> BatchNorm], BatchNorm in float32."""
 
@@ -20,7 +42,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv3d(in_features, features, 3, padding=1)
         # Keras momentum 0.99 is PyTorch momentum 0.01; Keras epsilon 1e-3
-        self.bn = nn.BatchNorm3d(features, eps=1e-3, momentum=1.0 - bn_momentum)
+        self.bn = BatchNorm3d(features, eps=1e-3, momentum=1.0 - bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -34,19 +56,28 @@ def cast_conv(conv: nn.Conv3d, x: torch.Tensor, padding: int = 0) -> torch.Tenso
     return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=padding)
 
 
+def dropout(
+    x: torch.Tensor, rate: float, training: bool,
+    generator: torch.Generator | None = None, noise_shape: tuple[int, ...] | None = None,
+) -> torch.Tensor:
+    """Keras/Flax dropout: each element of a mask of ``noise_shape`` (default
+    ``x``'s shape, broadcast over ``x``) keeps its values with probability
+    1 - ``rate``, scaled by 1 / (1 - ``rate``), and zeroes them otherwise.
+    The mask is drawn from ``generator`` (on ``x``'s device)."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(noise_shape or x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 def spatial_dropout_3d(
     x: torch.Tensor, rate: float, training: bool,
     generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """SpatialDropout3D on NDHWC: drops whole channels (Keras semantics),
     with noise shape (B, 1, 1, 1, C)."""
-    if not training or rate == 0.0:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand(
-        (x.shape[0], 1, 1, 1, x.shape[-1]), generator=generator, device=x.device
-    ) < keep
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+    return dropout(x, rate, training, generator, (x.shape[0], 1, 1, 1, x.shape[-1]))
 
 
 def global_average_pool_3d(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""In-memory frame sets: ``td-predict``'s frames straight from PDB files to
-the device, with no HDF5 file.
+"""In-memory frame sets: the frames of ``td-predict`` and of training,
+straight from PDB files to the device, with no HDF5 file.
 
 The counterpart of ``timed_design_tpu/voxel/dataset.py`` without its HDF5
 writer, and of what ``timed_design_tpu/io/h5frames.py`` reads back:
@@ -198,42 +198,62 @@ class FrameBatchSource:
     V, C) float32 frames voxelized on ``device`` (rows past ``n_valid`` are
     zero), y (B, 20) float32 one-hot labels on the host.
 
-    Each run of consecutive entries from one structure is voxelized in one
-    call, with only its rows as frame centres, so the device holds a batch
-    of frames at a time, never the whole input. An entry absent from the
-    frame set raises KeyError."""
+    The batch's rows of each structure are voxelized in one call, with only
+    those rows as frame centres, so the device holds a batch of frames at a
+    time, never the whole input, and a shuffled batch costs one call per
+    structure, not one per row. An entry absent from the frame set raises
+    KeyError.
+
+    ``shuffle=True`` (training) draws a fresh permutation of the entries on
+    every ``__iter__``, that is every epoch, from one
+    ``np.random.default_rng(shuffle_seed)`` made here: the order of the JAX
+    package's ``FrameBatchLoader(shuffle=True, shuffle_seed=...)``."""
 
     def __init__(self, frame_set: FrameSet, dmap: DatasetMap, batch_size: int,
-                 start_batch: int = 0, *, device: torch.device | str):
+                 start_batch: int = 0, *, device: torch.device | str,
+                 shuffle: bool = False, shuffle_seed: int = 0):
         if not dmap.is_old:
             raise ValueError("FrameBatchSource needs a per-residue dataset map")
+        if shuffle and start_batch:
+            # the skipped batches would come from a fresh permutation: some
+            # frames twice, others never, and not the interrupted epoch
+            raise ValueError(
+                "start_batch resume is incompatible with shuffle=True: "
+                "the skipped batches would come from a new permutation."
+            )
         self.frame_set = frame_set
         self.entries = dmap.entries
         self.batch_size = batch_size
         self.start_batch = start_batch
         self.device = torch.device(device)
         self.n_batches = -(-len(self.entries) // batch_size)
+        self.shuffle = shuffle
+        self._shuffle_rng = np.random.default_rng(shuffle_seed)
 
-    def _batch(self, index: int) -> tuple[torch.Tensor, np.ndarray, int]:
+    def _batch(self, entries: list, index: int) -> tuple[torch.Tensor, np.ndarray, int]:
         fs, B = self.frame_set, self.batch_size
-        batch = self.entries[index * B : (index + 1) * B]
+        batch = entries[index * B : (index + 1) * B]
         n = len(batch)
         X = torch.empty((B, *fs.frame_shape), dtype=torch.float32, device=self.device)
         X[n:] = 0
         y = np.zeros((B, 20), np.float32)
-        # runs of consecutive entries of one structure: (structure, start, rows)
-        runs: list[tuple[int, int, list[int]]] = []
+        # structure -> (positions in the batch, its rows), in batch order
+        groups: dict[int, tuple[list[int], list[int]]] = {}
         for i, (pdb, chain, rid, _) in enumerate(batch):
             s, r = fs.index[(pdb, chain, rid)]
             y[i, fs.label_index[s][r]] = 1.0
-            if runs and runs[-1][0] == s:
-                runs[-1][2].append(r)
-            else:
-                runs.append((s, i, [r]))
-        for s, start, rows in runs:
-            X[start : start + len(rows)] = fs.voxelize_rows(s, rows, self.device)
+            positions, rows = groups.setdefault(s, ([], []))
+            positions.append(i)
+            rows.append(r)
+        for s, (positions, rows) in groups.items():
+            # pinned, so the index's upload does not wait for queued device work
+            index = torch.tensor(positions, pin_memory=self.device.type == "cuda")
+            X[index.to(self.device, non_blocking=True)] = fs.voxelize_rows(s, rows, self.device)
         return X, y, n
 
     def __iter__(self) -> t.Iterator[tuple[torch.Tensor, np.ndarray, int]]:
+        entries = self.entries
+        if self.shuffle:
+            entries = [entries[i] for i in self._shuffle_rng.permutation(len(entries))]
         for index in range(self.start_batch, self.n_batches):
-            yield self._batch(index)
+            yield self._batch(entries, index)
