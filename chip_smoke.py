@@ -31,11 +31,12 @@ an output is wrong:
     two-state NMR file, in-process and once as a subprocess; TIMED_rotamer
     on 1ubq in float32 held to the CPU. It reaches no kernel of the port;
   - training (``train/``) on the same 988 frames, shuffled, batch 256: one
-    float32 train step of each family at registry widths on the card
-    against the CPU; registry TIMED trained by ``fit`` in bfloat16 and
-    float32 (ms per step, frames/s, device busy share, FLOP share); TIMED
-    overfit on 1ubq, its checkpoint through ``td-predict --voxelize``. It
-    reaches no kernel of the port either.
+    float32 train step of each family at registry widths on the card and
+    the CPU against a float64 step; registry TIMED trained by ``fit`` in
+    bfloat16 and float32 (ms per step, frames/s, device busy share, FLOP
+    share) on those frames and on a set of 512 structures; TIMED overfit on
+    1ubq, its checkpoint through ``td-predict --voxelize``. It reaches no
+    kernel of the port either.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -854,6 +855,37 @@ def write_structures(inputs: Path) -> None:
     (inputs / "2nmr.pdb").write_text(nmr_pdb(text))
 
 
+def noisy_multichain_pdb(text: str, chains: int, rng) -> str:
+    """``multichain_pdb`` of ``chains`` copies, every atom moved by noise of
+    0.2 A drawn from ``rng``."""
+    lines = multichain_pdb(text, chains).splitlines()
+    atoms = [i for i, line in enumerate(lines) if line.startswith("ATOM")]
+    noise = rng.normal(0, 0.2, (len(atoms), 3))
+    for i, d in zip(atoms, noise):
+        line = lines[i]
+        x, y, z = (float(line[30:38]), float(line[38:46]), float(line[46:54])) + d
+        lines[i] = f"{line[:30]}{x:8.3f}{y:8.3f}{z:8.3f}{line[54:]}"
+    return "\n".join(lines) + "\n"
+
+
+# The training set of many structures: MANY_STRUCTURES files, each of 1 to 6
+# chains of 1ubq (76 to 456 residues, 266 on average, about a PDB chain's
+# length) with their own noise, and a map of MANY_ROWS of their rows drawn
+# from the seed: a shuffled batch of 256 rows then touches about 200
+# structures, near the 256 of a batch over a real set of thousands of chains.
+MANY_STRUCTURES, MANY_ROWS = 512, 2560
+
+
+def write_many_structures(inputs: Path) -> None:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    inputs.mkdir()
+    text = gzip.decompress(UBQ.read_bytes()).decode()
+    for k in range(MANY_STRUCTURES):
+        (inputs / f"s{k:04d}.pdb").write_text(noisy_multichain_pdb(text, 1 + k % 6, rng))
+
+
 PREDICT_STRUCTURAL = ("datasetmap.txt", "encoded_labels.csv", "dataset.fasta")
 
 
@@ -1009,7 +1041,7 @@ def timed_forward_flops(module) -> float:
 def one_train_step(module, device, x, y, threads: int | None = None) -> dict:
     """One make_train_step of ``module`` on ``device`` (on the CPU with
     ``threads`` threads): the loss, and the gradients and floating-point
-    buffers (BatchNorm running statistics) after it, on the host."""
+    buffers (BatchNorm running statistics) after it, on the host in float64."""
     import torch
 
     from timed_design_tpu_torch.train import init_train_state, make_train_step
@@ -1024,41 +1056,88 @@ def one_train_step(module, device, x, y, threads: int | None = None) -> dict:
     finally:
         torch.set_num_threads(n)
     return {"loss": loss, "seconds": secs,
-            "grads": {k: p.grad.cpu() for k, p in module.named_parameters()},
-            "buffers": {k: b.cpu() for k, b in module.named_buffers() if b.is_floating_point()}}
+            "grads": {k: p.grad.cpu().double() for k, p in module.named_parameters()},
+            "buffers": {k: b.cpu().double() for k, b in module.named_buffers()
+                        if b.is_floating_point()}}
 
 
-def step_errors(a: dict, b: dict) -> dict:
-    """``a`` against ``b``: the loss (relative), the largest gradient error
-    as a share of ``b``'s largest |g| (and its leaf), and the largest error
-    of a running statistic relative to max(1, |value|)."""
-    scale = max(float(g.abs().max()) for g in b["grads"].values())
-    grad = {k: float((a["grads"][k] - g).abs().max()) / scale for k, g in b["grads"].items()}
-    worst = max(grad, key=grad.get)
+# A leaf whose float64 gradient is below this share of the largest |g| is
+# zero to rounding (a bias that a BatchNorm cancels); its error is taken
+# relative to the largest |g| instead of its own.
+ZERO_LEAF = 1e-9
+
+
+def step_errors(a: dict, ref: dict) -> dict:
+    """``a`` against the float64 step ``ref``: the loss (relative), per leaf
+    the largest gradient error relative to the leaf's largest float64 |g|
+    (the model's largest for a leaf that is zero to rounding), and the
+    largest error of a running statistic relative to max(1, |value|)."""
+    top = max(float(g.abs().max()) for g in ref["grads"].values())
+    scale = {k: float(g.abs().max()) for k, g in ref["grads"].items()}
+    grad = {k: float((a["grads"][k] - g).abs().max()) / (s if s > ZERO_LEAF * top else top)
+            for (k, g), s in zip(ref["grads"].items(), scale.values())}
     bn = max((float((a["buffers"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
-              for k, v in b["buffers"].items()), default=0.0)
-    return {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]), "grad": grad[worst],
-            "grad_leaf": worst, "bn": bn}
+              for k, v in ref["buffers"].items()), default=0.0)
+    return {"loss": abs(a["loss"] - ref["loss"]) / abs(ref["loss"]), "grad": grad, "bn": bn}
 
 
-# A train step on the card against the CPU, float32 with TF32 off, on 32 of
-# the batch's real frames: the loss to 1e-5 relative, every gradient element
-# to 5e-3 of the largest |g|, the running statistics to 1e-5, or, where the
-# CPU's own float32 result moves more than that when only its thread count
-# changes (the order of its sums), to 4x that move. A weight's gradient sums
-# 32 x 21^3 positions in float32, and a bias ahead of a BatchNorm has a true
-# gradient of 0, or nearly: registry TIMED's card and CPU gradients differ
-# by 1.4e-3 of the largest |g| on 16 random frames (tests/test_torch_train.py,
-# on the card). DenseNet at registry widths is conditioned worse: the CPU
-# on half its threads moves its loss by 1.06e-5 and a gradient by 0.029 of
-# the largest |g|.
-STEP_TOL = {"loss": 1e-5, "grad": 5e-3, "bn": 1e-5}
+# A float32 train step on the card and on the CPU (TF32 off), both held to a
+# float64 step on the CPU from the same weights on the same 32 frames: the
+# loss to 1e-5 relative, each leaf's gradient to 1e-4 of its largest |g|,
+# the running statistics to 1e-5, or, where the float32 CPU itself lies
+# further from float64 (its sums over 32 x 21^3 positions, in either of two
+# thread counts), to 4x that distance. The gradient of a bias ahead of a
+# BatchNorm sums many terms that cancel: in float32 it lies 1e-2 of itself
+# from float64 on the CPU too.
+STEP_TOL = {"loss": 1e-5, "grad": 1e-4, "bn": 1e-5}
+
+
+class PoolChoices:
+    """Max pooling (ProDCoNN's) that records each window's argmax in one
+    step and replays them in the next: the float64 and CPU steps then route
+    the gradient where the card did. Two values of a window within float32
+    rounding of each other make the choice differ between devices, and one
+    such window moves a leaf's gradient by 1e-3 of itself; what the step
+    check compares is the rounding of the sums. A replay counts the windows
+    whose own argmax differs from the recorded one."""
+
+    def __init__(self):
+        self.saved: list = []
+        self.replaying, self.next, self.flips, self.windows = False, 0, 0, 0
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self.real = F.max_pool3d
+        F.max_pool3d = self.pool
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.max_pool3d = self.real
+
+    def replay(self) -> None:
+        self.replaying, self.next, self.flips, self.windows = True, 0, 0, 0
+
+    def pool(self, x, kernel_size, stride=None):
+        out, own = self.real(x, kernel_size, stride, return_indices=True)
+        if not self.replaying:
+            self.saved.append(own.cpu())
+            return out
+        chosen = self.saved[self.next].to(x.device)
+        self.next += 1
+        self.flips += int((own != chosen).sum())
+        self.windows += own.numel()
+        return x.flatten(2).gather(2, chosen.flatten(2)).view_as(out)
 
 
 def train_step_parity(name: str, x, y) -> dict:
-    """One train step of registry ``name`` (dropout off) on the card and on
-    CPU copies from the same initial weights: the card against the CPU, and
-    the CPU against itself on half its threads (its float32 noise)."""
+    """One train step of registry ``name`` (dropout off) on the card, on a
+    CPU copy (all its threads and half of them) and on a float64 CPU copy,
+    all from the same initial weights and with the card's max-pool choices
+    (PoolChoices); the float32 steps against float64, and float64 against
+    itself from weights nudged by 2^-24 (the gradients' conditioning)."""
     import copy
 
     import torch
@@ -1068,32 +1147,71 @@ def train_step_parity(name: str, x, y) -> dict:
     torch.manual_seed(SEED)
     module = MODEL_REGISTRY[name].build(**({"dropout_rate": 0.0} if name in ("TIMED", "ProDCoNN")
                                            else {}))
-    cpu = one_train_step(copy.deepcopy(module), "cpu", x, y)
-    half = one_train_step(copy.deepcopy(module), "cpu", x, y,
-                          threads=max(1, torch.get_num_threads() // 2))
-    card = one_train_step(module, "cuda", x, y)
-    err, noise = step_errors(card, cpu), step_errors(half, cpu)
-    tol = {k: max(v, 4 * noise[k]) for k, v in STEP_TOL.items()}
-    log(f"train {name} float32 step, 32 frames, card against CPU: loss {card['loss']:.6f} (rel "
-        f"{err['loss']:.2e}, CPU on half its threads {noise['loss']:.2e}); gradients max |dg| / "
-        f"max |g| = {err['grad']:.2e} ({err['grad_leaf']}; CPU on half its threads "
-        f"{noise['grad']:.2e}); running statistics {err['bn']:.2e} ({noise['bn']:.2e}); "
-        f"CPU step {cpu['seconds']:.2f} s, card step {card['seconds'] * 1e3:.1f} ms (first)")
-    for k in STEP_TOL:
-        assert err[k] <= tol[k], f"{name}: {k} {err[k]:.3g} from the CPU's (tolerance {tol[k]:.3g})"
-    return {"card_vs_cpu": err, "cpu_half_threads_vs_cpu": noise, "tolerance": tol,
-            "cpu_step_s": cpu["seconds"]}
+    witness = copy.deepcopy(module).double()
+    witness.compute_dtype = torch.float64
+    # the same float64 step from weights moved by float32's rounding (2^-24
+    # relative): how far the gradients move for reasons no arithmetic fixes
+    nudged = copy.deepcopy(witness)
+    noise = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for p in nudged.parameters():
+            p.mul_(1 + 2.0 ** -24 * torch.randn(p.shape, generator=noise, dtype=p.dtype))
+    cpu_copy = copy.deepcopy(module)
+    with PoolChoices() as choices:
+        card = one_train_step(module, "cuda", x, y)
+        choices.replay()
+        f64 = one_train_step(witness, "cpu", x.cpu().double(), y.double())
+        flips = (choices.flips, choices.windows)
+        choices.replay()
+        moved = step_errors(one_train_step(nudged, "cpu", x.cpu().double(), y.double()), f64)
+        cpus = []
+        for t in (None, max(1, torch.get_num_threads() // 2)):
+            choices.replay()
+            cpus.append(one_train_step(copy.deepcopy(cpu_copy), "cpu", x, y, threads=t))
+    err, cpu = step_errors(card, f64), [step_errors(c, f64) for c in cpus]
+    tol = {k: max(STEP_TOL[k], 4 * max(c[k] for c in cpu)) for k in ("loss", "bn")}
+    leaf_tol = {k: max(STEP_TOL["grad"], 4 * max(c["grad"][k] for c in cpu)) for k in err["grad"]}
+    worst = max(err["grad"], key=lambda k: err["grad"][k] / leaf_tol[k])
+    largest = max(err["grad"], key=err["grad"].get)
+    out = {"loss": err["loss"], "loss_cpu": [c["loss"] for c in cpu], "loss_tol": tol["loss"],
+           "bn": err["bn"], "bn_cpu": [c["bn"] for c in cpu], "bn_tol": tol["bn"],
+           "grad_leaves": len(err["grad"]), "grad_nearest_limit": {
+               "leaf": worst, "card": err["grad"][worst], "tol": leaf_tol[worst],
+               "cpu": [c["grad"][worst] for c in cpu]},
+           "grad_largest": {"leaf": largest, "card": err["grad"][largest],
+                            "cpu": [c["grad"][largest] for c in cpu]},
+           "grad_cpu_largest": max(cpu[0]["grad"].values()),
+           "grad_f64_nudged_largest": max(moved["grad"].values()),
+           "pool_windows_card_unlike_f64": flips, "f64_step_s": f64["seconds"],
+           "cpu_step_s": cpus[0]["seconds"]}
+    log(f"train {name} float32 step, 32 frames, against float64 on the CPU: loss rel card "
+        f"{err['loss']:.2e}, CPU {cpu[0]['loss']:.2e} and {cpu[1]['loss']:.2e} (all and half its "
+        f"threads); gradients per leaf ({len(err['grad'])} leaves), |dg| over the leaf's max |g|: "
+        f"nearest its limit {worst} card {err['grad'][worst]:.2e} (limit {leaf_tol[worst]:.2e}; "
+        f"CPU {cpu[0]['grad'][worst]:.2e}, {cpu[1]['grad'][worst]:.2e}), largest {largest} card "
+        f"{err['grad'][largest]:.2e} (CPU {cpu[0]['grad'][largest]:.2e}, "
+        f"{cpu[1]['grad'][largest]:.2e}), CPU's largest {out['grad_cpu_largest']:.2e}, float64's "
+        f"largest from weights nudged by 2^-24 {out['grad_f64_nudged_largest']:.2e}; max-pool "
+        f"windows where the card chose otherwise than float64 {flips[0]} of {flips[1]}; running "
+        f"statistics card {err['bn']:.2e}, CPU {cpu[0]['bn']:.2e}; steps: float64 "
+        f"{f64['seconds']:.2f} s, float32 CPU {cpus[0]['seconds']:.2f} s, card "
+        f"{card['seconds'] * 1e3:.1f} ms (first)")
+    for k in ("loss", "bn"):
+        assert err[k] <= tol[k], f"{name}: {k} {err[k]:.3g} from float64 (tolerance {tol[k]:.3g})"
+    bad = sorted(k for k, v in err["grad"].items() if v > leaf_tol[k])
+    assert not bad, f"{name}: the gradients of {bad} lie outside their tolerance"
+    return out
 
 
-def train_throughput(source, dtype) -> dict:
-    """Registry TIMED trained by ``fit`` over ``source`` (988 frames, batch
-    256, shuffled): one epoch to warm up, then 3 epochs timed. ms per step
-    from CUDA events around each train step (median of the 12 warm steps,
-    and of the 9 full 256-frame ones), frames/s from the host clock over
-    the 3 epochs (ending in a synchronize), and the device busy share of a
-    4th epoch under torch.profiler. fit reads the step's metrics at step 0
-    of each call only (log_every), so no step but that one waits on the
-    host."""
+def train_throughput(source, dtype, label: str) -> dict:
+    """Registry TIMED trained by ``fit`` over ``source`` (shuffled, batch
+    256; ``label`` names its frames): one epoch to warm up, then 3 epochs
+    timed. ms per step from CUDA events around each train step (median of
+    the warm steps, and of the full 256-frame ones), frames/s from the host
+    clock over the 3 epochs (ending in a synchronize), and the device busy
+    share of a 4th epoch under torch.profiler. fit reads the step's metrics
+    at step 0 of each call only (log_every), so no step but that one waits
+    on the host."""
     import statistics
 
     import torch
@@ -1162,7 +1280,8 @@ def train_throughput(source, dtype) -> dict:
         out["fp32_peak_share"] = achieved / FP32_FLOPS
         shares += f", {out['fp32_peak_share']:.3f} of the float32 peak"
     busy = "not measured" if out["busy_share"] is None else f"{out['busy_share']:.3f}"
-    log(f"train TIMED {str(dtype).split('.')[-1]}, 988 frames, batch 256, 3 warm epochs: "
+    log(f"train TIMED {str(dtype).split('.')[-1]}, {label}, {len(source.entries)} frames an "
+        f"epoch, batch 256, 3 warm epochs: "
         f"{out['step_ms_median']:.2f} ms/step median of {len(step_ms)} "
         f"({out['full_step_ms_median']:.2f} ms per full 256-frame step), "
         f"{out['frames_per_s']:.0f} frames/s, device busy share over one epoch {busy}; "
@@ -1172,24 +1291,78 @@ def train_throughput(source, dtype) -> dict:
     return out
 
 
+def many_structure_source(work: Path, dev) -> tuple:
+    """The many-structure training set (``write_many_structures``) and a
+    FrameBatchSource over MANY_ROWS of its rows drawn from the seed,
+    shuffled, batch 256; with the set's sizes, the structures that a batch
+    of the source's first epoch touches on average, and the set-up time."""
+    import numpy as np
+
+    from timed_design_tpu_torch.io import DatasetMap
+    from timed_design_tpu_torch.voxel import FrameBatchSource, create_flat_dataset_map, make_frame_set
+
+    t0 = time.perf_counter()
+    write_many_structures(work / "many")
+    fs = make_frame_set(sorted((work / "many").glob("*.pdb")))
+    entries = create_flat_dataset_map(fs).entries
+    rows = np.sort(np.random.default_rng(SEED).choice(len(entries), MANY_ROWS, replace=False))
+    source = FrameBatchSource(fs, DatasetMap(entries=[entries[i] for i in rows]), 256, device=dev,
+                              shuffle=True, shuffle_seed=0)
+    order = np.random.default_rng(0).permutation(MANY_ROWS)  # the source's first epoch
+    touched = [len({source.entries[i][0] for i in order[b : b + 256]})
+               for b in range(0, MANY_ROWS, 256)]
+    info = {"structures": len(fs.structures), "frames": len(entries), "rows": MANY_ROWS,
+            "structures_per_batch": float(np.mean(touched)), "setup_s": time.perf_counter() - t0}
+    log(f"train: many-structure set, {info['structures']} structures, {info['frames']} frames, "
+        f"{MANY_ROWS} rows drawn, {info['structures_per_batch']:.1f} structures a batch on "
+        f"average; written and read in {info['setup_s']:.1f} s")
+    return source, info
+
+
+def train_many_structures() -> dict:
+    """Registry TIMED trained by ``fit`` in bfloat16 and float32 over the
+    many-structure set (``many_structure_source``): what the batch source
+    costs where a batch touches some 200 structures, as in a real training
+    run. Callable alone: ``python3 -c "import chip_smoke as c;
+    c.train_many_structures()"``."""
+    import tempfile
+
+    import torch
+
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_many_", dir=ROOT))
+    try:
+        source, out = many_structure_source(work, torch.device("cuda"))
+        for dt in (torch.bfloat16, torch.float32):
+            out[str(dt).split(".")[-1]] = train_throughput(source, dt, "many-structure set")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def check_train() -> dict:
     """Training on the card, the port's train/ fed by FrameBatchSource:
     the frame set of the td-predict phase (988 frames), shuffled, batch 256.
     (1) One float32 train step of each of TIMED, ProDCoNN, DenseNet and
     DenseCPD at registry widths on the first 32 frames of a batch, dropout
-    off, on the card and on a CPU copy: the loss, the gradients and the
-    BatchNorm running statistics (train_step_parity, STEP_TOL). (2) Registry TIMED trained by ``fit`` in bfloat16
-    and float32 (train_throughput). (3) Registry TIMED (bn_momentum 0.9, lr
-    3e-3, bfloat16) overfit on 1ubq's 76 frames until the train top-1 is at
-    least 0.9, 600 steps at most; its checkpoint, saved by save_checkpoint,
-    through td-predict --voxelize on the card: argmax recovery of at least
-    0.9 against dataset.fasta. Training reaches no TPU kernel: the sampling
+    off, on the card and on CPU copies, held to a float64 step: the loss,
+    each leaf's gradient and the BatchNorm running statistics
+    (train_step_parity, STEP_TOL). (2) Registry TIMED trained by ``fit`` in
+    bfloat16 and float32 (train_throughput), over these 4 structures and
+    over the many-structure set (train_many_structures). (3) Registry TIMED
+    (bn_momentum 0.9, lr 3e-3, bfloat16) overfit on 1ubq's 76 frames until
+    the train top-1 and the evaluation-mode top-1 are at least 0.9, 600
+    steps at most; its checkpoint, saved by save_checkpoint, through
+    td-predict --voxelize on the card: argmax recovery of at least 0.9
+    against dataset.fasta. Training reaches no TPU kernel: the sampling
     kernel's counts stay 0."""
     import tempfile
 
     import numpy as np
     import torch
 
+    from torch import nn
+
+    import timed_design_tpu_torch.models.layers as layers
     from timed_design_tpu_torch.cli.predict import main as predict_main
     from timed_design_tpu_torch.models import MODEL_REGISTRY
     from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
@@ -1221,8 +1394,19 @@ def check_train() -> dict:
         parity = {name: train_step_parity(name, x32, y32) for name in TRAIN_FAMILIES}
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
-        throughput = {str(dt).split(".")[-1]: train_throughput(source, dt)
+        throughput = {str(dt).split(".")[-1]: train_throughput(source, dt, "4 structures")
                       for dt in (torch.bfloat16, torch.float32)}
+        # the bfloat16 run again with nn.BatchNorm3d's own forward (its
+        # running variance the unbiased one): the port's BatchNorm takes its
+        # statistics from the same kernel on the card, at the same cost
+        forward = layers.BatchNorm3d.forward
+        layers.BatchNorm3d.forward = nn.BatchNorm3d.forward
+        try:
+            throughput["bfloat16_kernel_statistics"] = train_throughput(
+                source, torch.bfloat16, "4 structures, nn.BatchNorm3d's statistics")
+        finally:
+            layers.BatchNorm3d.forward = forward
+        many = train_many_structures()
 
         fs1 = make_frame_set([inputs / "1ubq.pdb1.gz"])
         dmap1 = create_flat_dataset_map(fs1)
@@ -1274,8 +1458,9 @@ def check_train() -> dict:
     phase_s = time.perf_counter() - t_phase
     log(f"train: phase passed in {phase_s:.1f} s; launches of the sampling kernel: 0")
     return {"launches": launches, "parity": parity, "throughput": throughput,
-            "overfit": {"steps": state.step, "top1": top1, "seconds": overfit_s,
-                        "recovery": recovery}, "phase_s": phase_s}
+            "many_structures": many, "overfit": {
+                "steps": state.step, "top1": top1, "seconds": overfit_s, "recovery": recovery},
+            "phase_s": phase_s}
 
 
 def main() -> int:

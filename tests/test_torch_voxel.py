@@ -86,3 +86,33 @@ def test_voxelizer_chunking_is_invisible(ubq):
     np.testing.assert_allclose(
         voxelize_frame_atoms(fa, c, chunk=16, device="cpu").numpy(),
         voxelize_frame_atoms(fa, c, chunk=7, device="cpu").numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("codec", ["CNOCACB", "CNOCACBQ"])
+def test_frames_of_several_structures_in_one_call(ubq, codec):
+    """FrameSet.voxelize_rows, a batch's rows from structures of 380, 150
+    and 60 atoms in one call (each padded to the largest with dropped
+    atoms), equal each structure voxelized alone, row by row."""
+    import dataclasses
+
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+    from timed_design_tpu_torch.voxel.dataset import FrameSet
+
+    c = Codec.from_string(codec)
+    fa = structure_to_frame_atoms(ubq, c)
+    shifted = dataclasses.replace(fa, atoms_xyz=fa.atoms_xyz + np.float32(3.5))
+    parts = [fa, dataclasses.replace(shifted, atoms_xyz=shifted.atoms_xyz[:150],
+                                     atom_channel=shifted.atom_channel[:150],
+                                     atom_sigma=shifted.atom_sigma[:150],
+                                     atom_prop=shifted.atom_prop[:150])]
+    parts.append(dataclasses.replace(fa, **{k: getattr(fa, k)[:60] for k in (
+        "atoms_xyz", "atom_channel", "atom_sigma", "atom_prop")}))
+    fs = FrameSet([(f"s{i}", p) for i, p in enumerate(parts)], c)
+    alone = [voxelize_frame_atoms(p, c, device="cpu").numpy() for p in parts]
+    rng = np.random.default_rng(5)
+    structure = rng.integers(0, 3, 40)
+    row = rng.integers(0, 76, 40)
+    got = fs.voxelize_rows(structure, row, torch.device("cpu")).numpy()
+    want = np.stack([alone[s][r] for s, r in zip(structure, row)])
+    assert len({len(p.atom_channel) for p in parts}) == 3 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

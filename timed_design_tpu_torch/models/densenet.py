@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm3d, cast_conv, global_average_pool_3d
+from .layers import BatchNorm3d, at_least_float32, cast_conv, global_average_pool_3d
 
 
 def _bn(features: int) -> BatchNorm3d:
@@ -25,7 +25,7 @@ def _bn(features: int) -> BatchNorm3d:
 
 def _bn_relu(bn: BatchNorm3d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm and ReLU in float32, back to ``x``'s dtype."""
-    return F.relu(bn(x.to(torch.float32))).to(x.dtype)
+    return F.relu(bn(at_least_float32(x))).to(x.dtype)
 
 
 class DenseLayer(nn.Module):
@@ -50,7 +50,7 @@ class Transition(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = cast_conv(self.conv, _bn_relu(self.bn, x))
-        return F.avg_pool3d(h.to(torch.float32), 2, 2).to(x.dtype)
+        return F.avg_pool3d(at_least_float32(h), 2, 2).to(x.dtype)
 
 
 class DenseNet3D(nn.Module):
@@ -96,7 +96,7 @@ class DenseNet3D(nn.Module):
                 x = next(layers)(x)
             if bi < len(self.transitions):
                 x = self.transitions[bi](x)
-        x = global_average_pool_3d(F.relu(self.bn(x.to(torch.float32))))
+        x = global_average_pool_3d(F.relu(self.bn(at_least_float32(x))))
         x = self.head(x)
         return x if logits else torch.softmax(x, dim=-1)
 

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import cast_conv, dropout
+from .layers import at_least_float32, cast_conv, dropout
 
 _FLAT = 6 ** 3 * 64  # features after the last conv, 21^3 frames
 
@@ -49,7 +49,7 @@ class ProDCoNN(nn.Module):
         hidden = self.dense[0]
         x = F.relu(F.linear(x, hidden.weight.to(dt), hidden.bias.to(dt)))
         x = dropout(x, self.dropout_rate, self.training, generator)
-        x = self.dense[1](x.to(torch.float32))
+        x = self.dense[1](at_least_float32(x))
         return x if logits else torch.softmax(x, dim=-1)
 
 

@@ -5,8 +5,8 @@ The counterpart of ``timed_design_tpu/voxel/dataset.py`` without its HDF5
 writer, and of what ``timed_design_tpu/io/h5frames.py`` reads back:
 ``create_flat_dataset_map`` and ``FrameBatchLoader``. A ``FrameSet`` holds
 the frame atoms of every structure (every NMR state with
-``voxelise_all_states``) on the host; ``FrameBatchSource`` voxelizes the
-rows of each batch on the device.
+``voxelise_all_states``) on the host, and as flat tables on the device;
+``FrameBatchSource`` voxelizes the rows of each batch there in one call.
 
 Row order is the JAX package's. Its map comes from iterating the HDF5 tree,
 and HDF5 lists group names in byte order: structures by name, chains by id,
@@ -27,6 +27,7 @@ import torch
 
 from ..constants import AA3, AA3_TO_INT, UNCOMMON_RESIDUE_DICT
 from ..io.datasetmap import DatasetMap, _residue_sort_key
+from ..ops.matmul_voxelize import voxelize_matmul
 from ..structure import Structure, load_pdb
 from .codec import Codec
 from .frames import FrameAtoms, structure_to_frame_atoms
@@ -91,7 +92,11 @@ class FrameSet:
     ``make_frame_dataset`` writes them by default. ``index`` maps each
     (pdb, chain, residue id) key to its (structure, row); ``label_index``
     holds each structure's 20-class labels (the JAX writer's
-    ``encoded_residue`` one-hots)."""
+    ``encoded_residue`` one-hots).
+
+    The atoms of every structure, and every row's frame centre and
+    rotation, are also kept as two flat float32 tables, copied to a device
+    once, at its first batch: a batch then uploads only indices."""
 
     structures: list[tuple[str, FrameAtoms]]
     codec: Codec
@@ -108,18 +113,55 @@ class FrameSet:
                         "(file names without .pdb/.gz) must be unique")
                 self.index[key] = (s, r)
             self.label_index.append(np.array([AA3_TO_INT[l] for l in fa.labels], np.int64))
+        fas = [fa for _, fa in self.structures]
+        # per atom: x, y, z, channel (small integers, exact in float32), sigma, property
+        self._atoms = np.concatenate([np.zeros((0, 6), np.float32)] + [np.column_stack([
+            fa.atoms_xyz, fa.atom_channel, fa.atom_sigma, fa.atom_prop]).astype(np.float32)
+            for fa in fas])
+        # per row: the frame centre (3) and rotation (9)
+        self._frames = np.concatenate([np.zeros((0, 12), np.float32)] + [np.column_stack([
+            fa.ca, fa.rot.reshape(-1, 9)]).astype(np.float32) for fa in fas])
+        self._atom_count = np.array([len(fa.atom_channel) for fa in fas], np.int64)
+        self._atom_start = np.cumsum(self._atom_count) - self._atom_count
+        rows = np.array([len(fa.labels) for fa in fas], np.int64)
+        self._row_start = np.cumsum(rows) - rows
+        self._tables: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def frame_shape(self) -> tuple[int, int, int, int]:
         return (21, 21, 21, self.codec.n_channels)
 
-    def voxelize_rows(self, s: int, rows: list[int], device) -> torch.Tensor:
-        """Frames of rows ``rows`` of structure ``s`` on ``device``: every
-        atom of the structure, only these rows' frame centres."""
-        fa = self.structures[s][1]
-        if rows != list(range(len(fa.labels))):
-            fa = dataclasses.replace(fa, ca=fa.ca[rows], rot=fa.rot[rows])
-        return voxelize_frame_atoms(fa, self.codec, device=device)
+    def voxelize_rows(self, structure: np.ndarray, row: np.ndarray,
+                      device: torch.device) -> torch.Tensor:
+        """Frames of row ``row[i]`` of structure ``structure[i]``, in that
+        order, on ``device``, in one voxelizer call: each frame sees every
+        atom of its own structure, padded to the call's largest structure.
+        Only the indices cross to the device, pinned on a card, so the copy
+        queues behind the device's work instead of waiting for it."""
+        if device not in self._tables:
+            self._tables[device] = (torch.from_numpy(self._atoms).to(device),
+                                    torch.from_numpy(self._frames).to(device))
+        atoms, frames = self._tables[device]
+        ids, slot = np.unique(structure, return_inverse=True)
+        S, n, A = len(ids), len(row), int(self._atom_count[ids].max())
+        host = torch.from_numpy(np.concatenate([
+            self._atom_start[ids], self._atom_count[ids], slot.ravel(),
+            self._row_start[structure] + row]))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        start, count, slot, rows = host.to(device, non_blocking=True).split([S, S, n, n])
+        j = torch.arange(A, device=device)
+        # padding repeats the structure's last atom, dropped (channel -1)
+        a = atoms[start[:, None] + torch.minimum(j, count[:, None] - 1)]  # (S, A, 6)
+        channel = torch.where(j < count[:, None], a[..., 3], -1.0).to(torch.int32)
+        f = frames[rows]
+        prop = self.codec.property_channel
+        return voxelize_matmul(
+            a[..., :3], channel, a[..., 4], a[..., 5], f[:, :3], f[:, 3:].view(n, 3, 3),
+            n_channels=self.codec.n_channels,
+            prop_channel=self.codec.channels.index(prop) if prop else -1,
+            frame_structure=slot,
+        )
 
 
 def make_frame_set(
@@ -198,11 +240,11 @@ class FrameBatchSource:
     V, C) float32 frames voxelized on ``device`` (rows past ``n_valid`` are
     zero), y (B, 20) float32 one-hot labels on the host.
 
-    The batch's rows of each structure are voxelized in one call, with only
-    those rows as frame centres, so the device holds a batch of frames at a
-    time, never the whole input, and a shuffled batch costs one call per
-    structure, not one per row. An entry absent from the frame set raises
-    KeyError.
+    A batch's rows are voxelized in one call, whatever structures they come
+    from (``FrameSet.voxelize_rows``), so the device holds a batch of frames
+    at a time, never the whole input, and a shuffled batch over thousands of
+    structures costs one call, not one per structure. An entry absent from
+    the frame set raises KeyError.
 
     ``shuffle=True`` (training) draws a fresh permutation of the entries on
     every ``__iter__``, that is every epoch, from one
@@ -234,21 +276,14 @@ class FrameBatchSource:
         fs, B = self.frame_set, self.batch_size
         batch = entries[index * B : (index + 1) * B]
         n = len(batch)
-        X = torch.empty((B, *fs.frame_shape), dtype=torch.float32, device=self.device)
-        X[n:] = 0
+        structure, row = np.array([fs.index[(pdb, chain, rid)]
+                                   for pdb, chain, rid, _ in batch], np.int64).reshape(n, 2).T
         y = np.zeros((B, 20), np.float32)
-        # structure -> (positions in the batch, its rows), in batch order
-        groups: dict[int, tuple[list[int], list[int]]] = {}
-        for i, (pdb, chain, rid, _) in enumerate(batch):
-            s, r = fs.index[(pdb, chain, rid)]
+        for i, (s, r) in enumerate(zip(structure, row)):
             y[i, fs.label_index[s][r]] = 1.0
-            positions, rows = groups.setdefault(s, ([], []))
-            positions.append(i)
-            rows.append(r)
-        for s, (positions, rows) in groups.items():
-            # pinned, so the index's upload does not wait for queued device work
-            index = torch.tensor(positions, pin_memory=self.device.type == "cuda")
-            X[index.to(self.device, non_blocking=True)] = fs.voxelize_rows(s, rows, self.device)
+        X = fs.voxelize_rows(structure, row, self.device)
+        if n < B:
+            X = torch.cat([X, X.new_zeros((B - n, *fs.frame_shape))])
         return X, y, n
 
     def __iter__(self) -> t.Iterator[tuple[torch.Tensor, np.ndarray, int]]:
