@@ -36,7 +36,14 @@ an output is wrong:
     bfloat16 and float32 (ms per step, frames/s, device busy share, FLOP
     share) on those frames and on a set of 512 structures; TIMED overfit on
     1ubq, its checkpoint through ``td-predict --voxelize``. It reaches no
-    kernel of the port either.
+    kernel of the port either;
+  - quantized inference: the int8 convolution kernel held to its plain
+    version on every convolution shape of six registry models and timed at
+    TIMED's shapes at batch 512; each ``--quantize`` mode through
+    DesignSession (float32 against the CPU, bfloat16); ``td-predict
+    --voxelize --quantize int8`` as a subprocess and in-process (frames/s
+    per mode); ``td-serve --quantize int8`` with samples, which launches
+    both kernels; TIMED's BatchNorm folding against the unfolded forward.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -80,10 +87,10 @@ def gpu_name_and_power() -> str:
     ).stdout.strip()
 
 
-def time_ms(fn, reps: int = 20) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1463,6 +1470,338 @@ def check_train() -> dict:
             "phase_s": phase_s}
 
 
+# Dense int8 peak of an H100 SXM (NVIDIA's data sheet, no sparsity)
+INT8_OPS_PER_S = 1979e12
+# (Cin, Cout, k, padding): registry TIMED's convolutions at 21^3, the four
+# blocks and the 20- and 338-class heads; PER_FORWARD of them run per forward
+TIMED_CONVS = [(5, 16, 3, 1), (16, 32, 3, 1), (32, 64, 3, 1), (64, 128, 3, 1), (128, 20, 1, 0),
+               (128, 338, 1, 0)]
+PER_FORWARD = 5
+QUANT_MODES = ("w8", "int8-fake", "int8")
+# A quantized float32 forward on the card against the CPU: the two sum the
+# float32 convolutions in another order, so an activation at a rounding tie
+# can take the next int8 code on one of them
+QUANT_CPU_TOL = 1e-4
+# the registry models whose every convolution the kernel is held to
+ZOO = ("TIMED", "TIMED_rotamer", "TIMED_Deep", "ProDCoNN", "DenseNet", "DenseCPD")
+
+
+def conv_bound(B: int, D: int, cin: int, cout: int, k: int, pad: int) -> tuple[float, str]:
+    """Least time (ms) of an int8 convolution of B (D^3, cin) frames into
+    cout channels: its int8 input and weights read once and its int32 sums
+    written once over the memory rate, or 2 M N K operations over the int8
+    peak, whichever is longer."""
+    m = B * (D + 2 * pad - k + 1) ** 3
+    kk = k ** 3 * cin
+    t_bytes = (B * D ** 3 * cin + cout * kk + 4 * m * cout) / HBM_BYTES_PER_S
+    t_ops = 2 * m * cout * kk / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ubq_frames(n: int):
+    """1ubq's first ``n`` frames, voxelized on the card."""
+    from timed_design_tpu_torch.structure import load_pdb
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    codec = Codec.CNOCACB()
+    fa = structure_to_frame_atoms(load_pdb(UBQ), codec)
+    return voxelize_frame_atoms(fa, codec, device="cuda")[:n]
+
+
+def check_conv_kernel() -> dict:
+    """conv3d_int8 against conv3d_int8_plain run on a CPU copy of the same
+    codes (torch.equal), at every convolution of the registry models in ZOO,
+    the codes those models' int8 forwards give on 4 frames of 1ubq (2 for
+    DenseCPD): every call of the kernel is recorded and replayed on the CPU.
+    Then, at each of registry TIMED's convolutions at batch 512 on random
+    codes: the kernel's device time (a CUDA graph of 5 calls), its bound,
+    cuDNN's bfloat16 F.conv3d of the same shape as context (not the same
+    function: no PyTorch call computes an int8 conv3d on CUDA), and the
+    plain version's time on the card (one call, after one warm-up)."""
+    import torch
+    import torch.nn.functional as F
+
+    import timed_design_tpu_torch.models.quantize as quantize
+    from timed_design_tpu_torch.models import MODEL_REGISTRY, quantized_convs
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8, conv3d_int8_plain
+
+    calls = []
+
+    def record(xq, wq, padding=0):
+        out = conv3d_int8(xq, wq, padding)
+        calls.append((xq, wq, padding, out))
+        return out
+
+    checked, max_err = {}, 0
+    quantize.conv3d_int8 = record
+    try:
+        for name in ZOO:
+            torch.manual_seed(SEED)
+            model = MODEL_REGISTRY[name].build().to("cuda").eval()
+            with torch.inference_mode(), quantized_convs("int8"):
+                model(ubq_frames(2 if name == "DenseCPD" else 4))
+            for xq, wq, pad, out in calls:
+                key = (xq.shape[-1], wq.shape[0], wq.shape[1], pad, xq.shape[1])
+                want = conv3d_int8_plain(xq.cpu(), wq.cpu(), pad)
+                err = int((out.cpu().long() - want.long()).abs().max())
+                max_err = max(max_err, err)
+                checked[key] = checked.get(key, True) and torch.equal(out.cpu(), want)
+            calls.clear()
+    finally:
+        quantize.conv3d_int8 = conv3d_int8
+    log(f"conv3d_int8: {len(checked)} convolution shapes (Cin, Cout, k, pad, D) of {', '.join(ZOO)} "
+        f"on 1ubq's int8 codes, equal to the plain version on the CPU: "
+        f"{sum(checked.values())} of {len(checked)}; {sorted(checked)}")
+    assert all(checked.values()), f"kernel differs at {[k for k, v in checked.items() if not v]}"
+
+    shapes = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for cin, cout, k, pad in TIMED_CONVS:
+        x = torch.randint(-127, 128, (512, 21, 21, 21, cin), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (cout, k, k, k, cin), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        ms = graph_ms(lambda: conv3d_int8(x, w, pad), reps=5)
+        xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
+        wb = w.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
+        cudnn_ms = graph_ms(lambda: F.conv3d(xb, wb, padding=pad), reps=5)
+        del xb, wb
+        plain_ms = time_ms(lambda: conv3d_int8_plain(x, w, pad), reps=1, warmup=1)
+        bound_ms, bound_by = conv_bound(512, 21, cin, cout, k, pad)
+        shapes.append({"cin": cin, "cout": cout, "k": k, "pad": pad, "batch": 512, "ms": ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+                       "cudnn_bf16_ms": cudnn_ms, "plain_ms": plain_ms})
+        log(f"conv3d_int8 {cin}->{cout} k={k} pad={pad}, batch 512 at 21^3: device {ms:.3f} ms "
+            f"(a graph of 5), bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}; "
+            f"cuDNN bf16 conv3d (context) {cudnn_ms:.3f} ms; plain (float64 conv3d) "
+            f"{plain_ms:.1f} ms; {gpu_name_and_power()}")
+        del x, w
+    torch.cuda.empty_cache()
+    return {"shapes_checked": len(checked), "max_abs_err": max_err, "per_shape": shapes}
+
+
+def td_predict_argv(model: str, inputs: Path, out: Path, dtype: str, quantize: str | None):
+    argv = ["--voxelize", "--path_to_dataset", str(inputs), "--path_to_model", model,
+            "--allow-random-weights", "--batch_size", "512", "--compute_dtype", dtype,
+            "--device", "cuda", "--path_to_output", str(out), "--path_to_datasetmap",
+            str(out / "datasetmap.txt"), "--is_structure_nmr"]
+    argv += ["--predict_rotamers"] if model.endswith("rotamer") else []
+    return argv + (["--quantize", quantize] if quantize else [])
+
+
+# td-predict as a subprocess of its CLI module, printing the int8 kernel's
+# launches in that process at the end
+PREDICT_CLI = """
+import runpy, sys
+from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+sys.argv = ["td-predict", *sys.argv[1:]]
+runpy.run_module("timed_design_tpu_torch.cli.predict", run_name="__main__")
+print(f"conv3d_int8 launches: {conv3d_int8.launches}")
+"""
+
+
+def design_modes(dtype: str, device: str, batch: int, model=None) -> dict:
+    """1ubq's probabilities from DesignSession(quantize=m) of registry
+    TIMED_rotamer (random weights from its seed) for m in None and
+    QUANT_MODES; ``model``: that module instead."""
+    from timed_design_tpu_torch.engine import DesignSession
+
+    src = model if model is not None else "TIMED_rotamer"
+    kw = {"codec": "CNOCACB"} if model is not None else {"allow_random_weights": True}
+    return {m: DesignSession(src, compute_dtype=dtype, batch_size=batch, device=device,
+                             quantize=m, **kw).design(UBQ)[0] for m in (None, *QUANT_MODES)}
+
+
+def check_quantize() -> dict:
+    """Quantized inference on the card (models/quantize.py, the int8 kernel
+    and BatchNorm folding):
+    (1) check_conv_kernel;
+    (2) /design 1ubq through DesignSession(quantize=m) of registry
+        TIMED_rotamer, float32 (TF32 off) and bfloat16, each mode against
+        the unquantized run (argmax agreement >= 0.95, the JAX package's
+        pin) and, in float32, against the same mode on the CPU (QUANT_CPU_TOL);
+    (3) td-predict --voxelize --quantize int8 as a CLI subprocess over the
+        988 frames, TIMED and TIMED_rotamer in bfloat16: the artifact set,
+        and PER_FORWARD launches per batch per model;
+    (4) warm td-predict frames/s of registry TIMED in bfloat16 in-process,
+        unquantized and in each mode;
+    (5) td-serve --quantize int8: one /design with 100 samples launches the
+        sampling kernel once and the int8 kernel PER_FORWARD times;
+    (6) timed_inference_apply against registry TIMED's forward at batch 512
+        (BatchNorm moved off the identity from the seed): float32 within
+        1e-4, bfloat16 argmax agreement, and ms per batch of each."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.cli.predict import main as predict_main
+    from timed_design_tpu_torch.cli.serve import build_designers, build_parser, make_server
+    from timed_design_tpu_torch.models import MODEL_REGISTRY, fold_timed_bn, timed_inference_apply
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+
+    t_phase = time.perf_counter()
+    out = {"kernel": check_conv_kernel()}
+
+    # (2) each mode on the card, and the card against the CPU in float32
+    modes = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        for dtype in ("float32", "bfloat16"):
+            got = design_modes(dtype, "cuda", 512)
+            modes[dtype] = {m: {"argmax_agreement": float((got[m].argmax(1) == got[None].argmax(1))
+                                                           .mean()),
+                                "max_abs_dp": float(np.abs(got[m] - got[None]).max())}
+                            for m in QUANT_MODES}
+            if dtype == "float32":
+                torch.manual_seed(0)
+                cpu_model = MODEL_REGISTRY["TIMED_rotamer"].build()  # the seed's weights
+                cpu = design_modes(dtype, "cpu", 80, cpu_model)
+                for m in (None, *QUANT_MODES):
+                    err = float(np.abs(got[m] - cpu[m]).max())
+                    modes[dtype].setdefault(m or "none", {})["card_vs_cpu_max_abs_dp"] = err
+            for m in QUANT_MODES:
+                log(f"quantize {m} {dtype}: TIMED_rotamer 1ubq against unquantized: argmax "
+                    f"agreement {modes[dtype][m]['argmax_agreement']:.4f}, max |dp| "
+                    f"{modes[dtype][m]['max_abs_dp']:.3g}" + (
+                        f"; card against CPU max |dp| {modes[dtype][m]['card_vs_cpu_max_abs_dp']:.3g}"
+                        if dtype == "float32" else ""))
+                assert modes[dtype][m]["argmax_agreement"] >= 0.95, (dtype, m)
+                if dtype == "float32":
+                    assert modes[dtype][m]["card_vs_cpu_max_abs_dp"] <= QUANT_CPU_TOL, (dtype, m)
+            if dtype == "float32":
+                log(f"quantize none float32: card against CPU max |dp| "
+                    f"{modes[dtype]['none']['card_vs_cpu_max_abs_dp']:.3g}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out["modes"] = modes
+
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_quantize_", dir=ROOT))
+    try:
+        inputs = work / "in"
+        write_structures(inputs)
+        # (3) the CLI as a subprocess, its own launch count
+        cli = {}
+        for model in ("TIMED", "TIMED_rotamer"):
+            dest = work / f"cli_{model}"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", PREDICT_CLI,
+                 *td_predict_argv(model, inputs, dest, "bfloat16", "int8")],
+                cwd=work, capture_output=True, text=True, timeout=600,
+                env={**os.environ, "PYTHONPATH": str(ROOT)})
+            assert proc.returncode == 0, proc.stdout + proc.stderr
+            n = check_td_predict_outputs(dest, model, model.endswith("rotamer"), True)
+            launches = int(proc.stdout.rsplit("conv3d_int8 launches: ", 1)[1].split()[0])
+            batches = -(-n // 512)
+            cli[model] = {"frames": n, "launches": launches, "wall_s": time.perf_counter() - t0}
+            log(f"td-predict --quantize int8 CLI subprocess, {model} bf16: rc 0, {n} frames, "
+                f"{launches} launches of conv3d_int8 ({PER_FORWARD} x {batches} batches), "
+                f"{cli[model]['wall_s']:.1f} s")
+            assert launches == PER_FORWARD * batches, (model, launches)
+        out["td_predict_cli"] = cli
+
+        # (4) warm frames/s per mode, in-process
+        conv3d_int8.launches = 0
+        fps = {}
+        for m in (None, *QUANT_MODES):
+            for run in range(2):
+                dest = work / f"fps_{m}_{run}"
+                result = predict_main(td_predict_argv("TIMED", inputs, dest, "bfloat16", m))
+            n = check_td_predict_outputs(dest, "TIMED", False, True)
+            fps[m or "none"] = n / result.timings["predict"]
+        in_process = conv3d_int8.launches
+        assert in_process == 2 * PER_FORWARD * -(-n // 512), in_process
+        log("td-predict TIMED bf16, 988 frames, batch 512, warm predict frames/s: " + ", ".join(
+            f"{k} {v:.0f}" for k, v in fps.items()) + f"; {gpu_name_and_power()}")
+        out["td_predict_frames_per_s"] = fps
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (5) td-serve --quantize int8
+    designers = build_designers(build_parser().parse_args([
+        "--model", "TIMED_rotamer", "--allow-random-weights", "--batch_size", "512",
+        "--quantize", "int8"]))
+    d = designers["TIMED_rotamer"]
+    server = make_server(d, "127.0.0.1", 0, "TIMED_rotamer")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        pdb = gzip.decompress(UBQ.read_bytes()).decode()
+        conv3d_int8.launches = sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+        status, body, dt = post(f"http://127.0.0.1:{server.server_address[1]}/design",
+                                {"pdb": pdb, "n_samples": 100, "temperature": 0.2, "seed": 7})
+        serve = {"conv3d_int8": conv3d_int8.launches, "sample_inverse_cdf": sample_inverse_cdf.launches,
+                 "latency_s": dt}
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+        d.close()
+    p = np.array(body["probabilities"])
+    assert status == 200 and p.shape == (76, 20) and np.isfinite(p).all()
+    assert np.abs(p.sum(1) - 1).max() <= 1e-3 and len(body["samples"]) == 100
+    assert all(len(s["sequence"]) == 76 for s in body["samples"])
+    log(f"td-serve --quantize int8: /design 1ubq n=100 in {dt * 1e3:.1f} ms (first, "
+        f"{stages(body['timings_s'])}); launches: conv3d_int8 {serve['conv3d_int8']}, "
+        f"sample_inverse_cdf {serve['sample_inverse_cdf']}")
+    assert serve["conv3d_int8"] == PER_FORWARD and serve["sample_inverse_cdf"] == 1
+    assert sample_inverse_cdf_batched.launches == 0
+    out["serve"] = serve
+
+    # (6) BatchNorm folding on the card
+    torch.manual_seed(SEED)
+    module = MODEL_REGISTRY["TIMED"].build()
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for block in module.blocks:
+            block.bn.weight.uniform_(0.5, 1.5, generator=gen)
+            block.bn.bias.normal_(0, 0.1, generator=gen)
+            block.bn.running_mean.normal_(0, 0.1, generator=gen)
+            block.bn.running_var.uniform_(0.5, 1.5, generator=gen)
+    module = module.to("cuda").eval()
+    folded, n_blocks = fold_timed_bn(module)
+    folded = {k: v.to("cuda") for k, v in folded.items()}
+    x = torch.cat([ubq_frames(76)] * 7)[:512]
+    fold = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            want = module(x)
+            got = timed_inference_apply(folded, x, n_blocks)
+        fold["f32_max_abs_dp"] = float((got - want).abs().max())
+        torch.backends.cudnn.allow_tf32 = tf32
+        half = copy.deepcopy(module)
+        half.compute_dtype = torch.bfloat16
+        with torch.inference_mode():
+            want16 = half(x)
+            got16 = timed_inference_apply(folded, x, n_blocks, torch.bfloat16)
+            fold["bf16_argmax_agreement"] = float((got16.argmax(1) == want16.argmax(1))
+                                                  .float().mean())
+            fold["bf16_max_abs_dp"] = float((got16 - want16).abs().max())
+            fold["unfolded_bf16_ms"] = time_ms(lambda: half(x), reps=10)
+            fold["folded_bf16_ms"] = time_ms(
+                lambda: timed_inference_apply(folded, x, n_blocks, torch.bfloat16), reps=10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"fold_timed_bn: registry TIMED, batch 512 of 1ubq's frames: float32 folded against "
+        f"unfolded max |dp| {fold['f32_max_abs_dp']:.3g}; bfloat16 argmax agreement "
+        f"{fold['bf16_argmax_agreement']:.4f} (max |dp| {fold['bf16_max_abs_dp']:.3g}); bf16 "
+        f"forward {fold['unfolded_bf16_ms']:.3f} ms unfolded, {fold['folded_bf16_ms']:.3f} ms "
+        f"folded, per batch of 512; {gpu_name_and_power()}")
+    assert fold["f32_max_abs_dp"] <= 1e-4 and fold["bf16_argmax_agreement"] >= 0.95
+    out["fold"] = fold
+    out["launches"] = {"td_predict_cli": sum(c["launches"] for c in cli.values()),
+                       "td_predict": in_process, "serve": serve["conv3d_int8"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"quantize: phase passed in {out['phase_s']:.1f} s; launches of conv3d_int8 "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1473,7 +1812,10 @@ def main() -> int:
 
     t_start = time.perf_counter()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, GPU: {gpu_name_and_power()}")
-    build_kernels(["sample_inverse_cdf"])
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+
+    build_kernels(["sample_inverse_cdf", "conv3d_int8"])
+    conv3d_int8.launches = 0
     kernel = check_sampling_kernel()
     batched = check_batched_kernel()
     check_reference("TIMED_rotamer", 338)
@@ -1482,9 +1824,13 @@ def main() -> int:
     families = check_families()
     td_predict = check_td_predict()
     train = check_train()
+    assert conv3d_int8.launches == 0, "an unquantized path launched the int8 kernel"
+    quantize = check_quantize()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
-                    "td_predict": td_predict, "train": train}))
+                    "td_predict": td_predict, "train": train, "quantize": quantize}))
     main_shape = kernel["shapes"][0]
+    # TIMED's 64 -> 128 block: the largest of its int8 convolutions
+    conv_main = quantize["kernel"]["per_shape"][3]
     # td-predict and training reach no TPU kernel (voxelizer and convs are
     # plain torch)
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
@@ -1507,6 +1853,24 @@ def main() -> int:
         "equal_to_plain": all(s["equal_to_plain"] for s in kernel["shapes"]),
         "per_shape": kernel["shapes"],
         "batched": batched,
+    }, {
+        "name": "conv3d_int8",
+        "route": "cuda",
+        "source": "timed_design_tpu_torch/csrc/conv3d_int8.cu",
+        # no Pallas kernel: the counterpart of XLA's int8 conv_general_dilated
+        "replaces": "timed_design_tpu/models/quantize.py:125",
+        "launches": sum(quantize["launches"].values()),
+        "launches_by_path": quantize["launches"],
+        "max_abs_err": quantize["kernel"]["max_abs_err"],
+        "ms": conv_main["ms"],
+        "plain_ms": conv_main["plain_ms"],
+        "bound_ms": conv_main["bound_ms"],
+        "bound_by": conv_main["bound_by"],
+        "library_ms": None,  # PyTorch has no int8 conv3d on CUDA
+        "cudnn_bf16_ms": conv_main["cudnn_bf16_ms"],
+        "shape": [conv_main["batch"], 21, conv_main["cin"], conv_main["cout"], conv_main["k"]],
+        "shapes_equal_to_plain": quantize["kernel"]["shapes_checked"],
+        "per_shape": quantize["kernel"]["per_shape"],
     }]}), flush=True)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_power(), flush=True)

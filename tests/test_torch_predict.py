@@ -521,6 +521,21 @@ def test_td_predict_matches_jax(tmp_path, structures, ckpts, run):
         assert txt.endswith("nmrx 10\n")
 
 
+@pytest.mark.parametrize("mode", ["w8", "int8"])
+def test_td_predict_quantize_matches_jax(tmp_path, structures, ckpts, mode):
+    """JAX ``td-predict --voxelize --quantize`` against the port's, float32,
+    batch 32, TIMED on 1ubq: the last batch is padded with zero frames in
+    both, so the activation scales, taken over the whole batch, match."""
+    argv = ["--voxelize", "--path_to_dataset", str(structures / "1ubq.pdb1.gz"),
+            "--batch_size", str(BATCH), "--path_to_model", ckpts["TIMED"], "--quantize", mode]
+    _run_jax(argv, tmp_path / "jax")
+    _run_port(argv, tmp_path / "port")
+    _compare_runs(tmp_path / "jax", tmp_path / "port", rotamer=False)
+    unquantized = tmp_path / "port_unquantized"
+    _run_port(argv[:-2], unquantized)
+    assert _csv(unquantized / "TIMED.csv").tolist() != _csv(tmp_path / "port" / "TIMED.csv").tolist()
+
+
 @pytest.mark.parametrize("rotamer", [False, True], ids=["20_class", "rotamer"])
 def test_resume_equals_fresh_run(tmp_path, structures, ckpts, rotamer):
     """--start_batch 1 into a directory holding batch 0's rows (the streamed
@@ -584,11 +599,11 @@ def test_profile_writes_a_trace(tmp_path, structures, ckpts):
     assert len(_fasta(tmp_path / "out" / "TIMED.fasta")[">AinsA"]) == 12
 
 
+# flag -> (argv, the message it exits with; None: ported, so it runs)
 REFUSALS = {
     "hdf5": (["--path_to_dataset", "x.hdf5", "--voxelize"], "td-predict on HDF5 datasets"),
     "no_voxelize": (["--path_to_dataset", "x.pdb"], "--voxelize is required"),
-    "quantize": (["--voxelize", "--path_to_dataset", "x.pdb", "--quantize", "w8"],
-                 "item 4"),
+    "quantize": (["--voxelize", "--quantize", "w8"], None),
     "report": (["--voxelize", "--path_to_dataset", "x.pdb", "--report"], "item 6"),
     "output_analysis": (["--voxelize", "--path_to_dataset", "x.pdb", "--output_analysis"],
                         "item 6"),
@@ -596,10 +611,19 @@ REFUSALS = {
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_refusals(case):
+def test_refusals(case, tmp_path, structures, ckpts):
+    """What the port does not take exits with a message that names its
+    ROADMAP item; ``--quantize``, ported, runs (``--quantize w8 --device
+    cpu`` on a small checkpoint)."""
     from timed_design_tpu_torch.cli.predict import main
 
     argv, message = REFUSALS[case]
+    if message is None:
+        argv = argv + ["--path_to_dataset", str(structures / "b" / "Ains.pdb"),
+                       "--batch_size", str(BATCH), "--path_to_model", ckpts["TIMED"]]
+        _run_port(argv, tmp_path)
+        assert len(_fasta(tmp_path / "TIMED.fasta")[">AinsA"]) == 12
+        return
     with pytest.raises(SystemExit, match=message):
         main(argv + ["--path_to_model", "TIMED", "--device", "cpu"])
 

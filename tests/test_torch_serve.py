@@ -112,6 +112,42 @@ def test_design_session_matches_jax(ckpts, ubq_pdb_gz):
         np.testing.assert_array_equal(got.argmax(1), np.asarray(want).argmax(1))
 
 
+def test_serve_quantize_int8_matches_jax(ckpts, pdb_text, ubq_pdb_gz):
+    """``td-serve --quantize int8 --device cpu --no-coalesce`` builds its
+    designer, and ``/design`` on 1ubq agrees with the JAX package's
+    ``DesignSession(quantize="int8")``, float32, batch 80 in both (without
+    coalescing: a group's requests share the activation scale, in both
+    packages)."""
+    from timed_design_tpu.engine import DesignSession as JaxSession
+
+    from timed_design_tpu_torch.cli.serve import build_designers, build_parser, make_server
+
+    model = f"TIMED@{ckpts['TIMED']}"
+    designers = build_designers(build_parser().parse_args([
+        "--model", model, "--quantize", "int8", "--no-coalesce", "--compute_dtype", "float32",
+        "--batch_size", "80", "--device", "cpu"]))
+    server = make_server(designers["TIMED"], "127.0.0.1", 0, "TIMED")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        status, body = _post(f"http://127.0.0.1:{server.server_address[1]}/design",
+                             pdb_text.encode())
+    finally:
+        server.shutdown()
+        server.server_close()
+        designers["TIMED"].close()
+        th.join(timeout=10)
+    assert status == 200 and designers["TIMED"].session.predictor.quantize == "int8"
+    want, _ = JaxSession(model, compute_dtype="float32", batch_size=80,
+                         quantize="int8").design(ubq_pdb_gz)
+    got = np.array(body["probabilities"])
+    assert got.shape == (76, 20)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
+    np.testing.assert_array_equal(got.argmax(1), np.asarray(want).argmax(1))
+    unquantized, _ = JaxSession(model, compute_dtype="float32", batch_size=80).design(ubq_pdb_gz)
+    assert np.abs(got - np.asarray(unquantized)).max() > 1e-5
+
+
 def test_predict_structure_caches_predictors(ckpts, ubq_pdb_gz):
     from timed_design_tpu_torch.engine import predictor as P
 
@@ -246,8 +282,15 @@ def test_serial_and_ensemble_designers(ckpts, ubq_pdb_gz):
     probs, fa, timings = designers["ensemble"].design(s)
     assert timings["ensemble_members"] == 2 and len(fa.labels) == 76
     np.testing.assert_allclose(probs, (members[0] + members[1]) / 2, atol=1e-6)
-    with pytest.raises(SystemExit, match="not ported"):
-        build_designers(build_parser().parse_args(["--model", "x", "--quantize", "w8"]))
+    quantized = build_designers(build_parser().parse_args([
+        "--model", f"TIMED_rotamer@{ckpts['TIMED_rotamer']}", "--quantize", "w8",
+        "--compute_dtype", "float32", "--batch_size", "80", "--device", "cpu"]))
+    try:
+        assert quantized["TIMED_rotamer"].session.predictor.quantize == "w8"
+        q = quantized["TIMED_rotamer"].design(s)[0]
+    finally:
+        quantized["TIMED_rotamer"].close()
+    assert 0 < np.abs(q - members[0]).max() < 2e-3
 
 
 _HYGIENE = """

@@ -16,8 +16,9 @@ read.
 
 The flags of ``timed_design_tpu/cli/predict.py`` plus ``--device`` (default
 ``cuda``; without a card it exits with a message, and runs on the CPU only
-with ``--device cpu``). ``--voxelize`` is required. ``--quantize``,
-``--report`` and ``--output_analysis`` are not ported and exit.
+with ``--device cpu``). ``--voxelize`` is required. ``--quantize`` runs
+every convolution in a mode of ``models/quantize.py``. ``--report`` and
+``--output_analysis`` are not ported and exit.
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ import torch
 from ..utils import PredictConfig
 
 NOT_PORTED = {
-    "quantize": "ROADMAP Queue 1, item 4 (models/optimize.py, then models/quantize.py)",
     "report": "ROADMAP Queue 1, item 6 (the report and the plots)",
     "output_analysis": "ROADMAP Queue 1, item 6 (the report and the plots)",
 }
@@ -75,7 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "Every model already runs on the same device batches.")
     p.add_argument("--quantize", type=str, default=None,
                    choices=["int8", "int8-fake", "w8"],
-                   help="Not ported: exits with the ROADMAP item that brings it")
+                   help="Run the convolutions quantized (models/quantize.py): int8 = "
+                        "int8 codes convolved with int32 sums (a CUDA kernel on the "
+                        "card); int8-fake = the same codes, convolved in floating "
+                        "point; w8 = weight-only int8")
     p.add_argument("--allow-random-weights", action="store_true",
                    dest="allow_random_weights",
                    help="Permit bare registry names with no weights "
@@ -152,6 +155,7 @@ def main(argv=None):
             compute_dtype=getattr(torch, args.compute_dtype),
             allow_random_weights=args.allow_random_weights,
             ensemble=args.ensemble,
+            quantize=args.quantize,
         )
     if args.profile:
         trace = Path(args.profile) / "td_predict_trace.json"

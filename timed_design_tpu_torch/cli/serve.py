@@ -54,7 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--quantize", type=str, default=None,
                    choices=["int8", "int8-fake", "w8"],
-                   help="quantized convs: not ported to PyTorch yet")
+                   help="serve with quantized convolutions (models/quantize.py): "
+                        "int8 = int8 codes convolved with int32 sums (a CUDA kernel "
+                        "on the card); int8-fake = the same codes in floating point; "
+                        "w8 = weight-only int8")
     p.add_argument("--allow-random-weights", action="store_true",
                    dest="allow_random_weights")
     p.add_argument("--no-coalesce", action="store_true", dest="no_coalesce",
@@ -339,9 +342,6 @@ def build_designers(args) -> dict:
     from ..engine import DesignSession
     from ..engine.coalescer import CoalescingDesigner, SerialDesigner
 
-    if args.quantize is not None:
-        raise SystemExit("--quantize is not ported to PyTorch yet "
-                         "(ROADMAP, Queue 1: quantize/optimize)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; "
@@ -351,7 +351,7 @@ def build_designers(args) -> dict:
         session = DesignSession(
             model, codec=args.codec, batch_size=args.batch_size,
             device=device, compute_dtype=args.compute_dtype,
-            allow_random_weights=args.allow_random_weights,
+            allow_random_weights=args.allow_random_weights, quantize=args.quantize,
         )
         d = (SerialDesigner(session) if args.no_coalesce
              else CoalescingDesigner(session, window_ms=args.coalesce_window_ms))

@@ -42,7 +42,9 @@ from ..models import (
     load_checkpoint_build_kwargs,
     load_checkpoint_params,
     load_model,
+    quantized_convs,
 )
+from ..models.quantize import check_mode
 from ..utils import PhaseTimer
 from ..voxel.dataset import FrameBatchSource, FrameSet, create_flat_dataset_map
 
@@ -62,10 +64,14 @@ class Predictor:
     """Fixed-batch forward pass of one model on one device."""
 
     def __init__(self, model: nn.Module, batch_size: int = 512,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, quantize: str | None = None):
         """``model``: a module whose forward maps (B, 21, 21, 21, C) frames
         to (B, n_classes) float32 probabilities and that names its
-        ``compute_dtype`` (the frames' dtype on the device)."""
+        ``compute_dtype`` (the frames' dtype on the device). ``quantize``:
+        None, or a mode of ``models/quantize.py`` ('int8', 'int8-fake',
+        'w8') that every forward runs in."""
+        check_mode(quantize)
+        self.quantize = quantize
         self.device = torch.device(device) if device is not None else default_device()
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
@@ -98,8 +104,9 @@ class Predictor:
         this predictor or any other with the same device, batch and compute
         dtype, so that several models share one device batch) and the copy
         of its result to a pinned host buffer. Returns the handle ``fetch``
-        waits on."""
-        with torch.inference_mode():
+        waits on. The quantize mode is entered here, on the thread that runs
+        the forward (a coalescer's worker, td-predict's loop)."""
+        with torch.inference_mode(), quantized_convs(self.quantize):
             out = self.model(x)
         if self.device.type != "cuda":
             return out, None
@@ -214,6 +221,7 @@ def load_dataset_and_predict(
     compute_dtype: torch.dtype | None = None,
     allow_random_weights: bool = False,
     ensemble: bool = False,
+    quantize: str | None = None,
 ) -> PredictionResult:
     """Run every model over the frame set and write the JAX package's
     artifact set into ``path_to_output`` (default: the working directory).
@@ -238,7 +246,8 @@ def load_dataset_and_predict(
     regenerated from the read-back matrix. ``ensemble`` averages the models'
     CSV-precision rows in one float64 running sum (so a resumed run gives
     the same bytes) and writes the artifact set as ``ensemble``; the models
-    must share a head.
+    must share a head. ``quantize``: every model's convolutions in that mode
+    of ``models/quantize.py`` (None: unquantized).
     """
     timer = PhaseTimer()
     path_to_output = Path.cwd() if path_to_output is None else Path(path_to_output)
@@ -280,7 +289,7 @@ def load_dataset_and_predict(
         model, model_name = _resolve_model(
             m, compute_dtype=compute_dtype, allow_random_weights=allow_random_weights)
         resolved_models.append((model, model_name))
-    predictors = [Predictor(model, batch_size=batch_size, device=device)
+    predictors = [Predictor(model, batch_size=batch_size, device=device, quantize=quantize)
                   for model, _ in resolved_models]
     if len({p.dtype for p in predictors}) != 1:
         raise ValueError("the models compute in different dtypes "

@@ -29,7 +29,10 @@ class DesignSession:
         gaussian: bool = True,
         compute_dtype: t.Union[str, torch.dtype] = "bfloat16",
         allow_random_weights: bool = False,
+        quantize: str | None = None,
     ):
+        """``quantize``: None, or the mode of ``models/quantize.py`` that
+        every forward runs in ('int8', 'int8-fake', 'w8')."""
         if isinstance(compute_dtype, str):
             compute_dtype = getattr(torch, compute_dtype)
         resolved, self.model_name = _resolve_model(
@@ -41,7 +44,8 @@ class DesignSession:
             codec = spec.codec if spec else "CNOCACB"
         self.codec = Codec.from_string(codec) if isinstance(codec, str) else codec
         self.gaussian = gaussian
-        self.predictor = Predictor(resolved, batch_size=batch_size, device=device)
+        self.predictor = Predictor(resolved, batch_size=batch_size, device=device,
+                                   quantize=quantize)
         self.last_timings: dict[str, float] = {}
 
     @property

@@ -1,5 +1,6 @@
 """The 3D-CNN zoo in PyTorch (TIMED, ProDCoNN, DenseNet, DenseCPD), its
-registry and weight conversion."""
+registry and weight conversion, quantized convolutions and TIMED's
+BatchNorm folding."""
 from .convert import (  # noqa: F401
     densenet_variables_to_state_dict,
     flax_variables_to_state_dict,
@@ -11,7 +12,9 @@ from .convert import (  # noqa: F401
     state_dict_to_prodconn_variables,
 )
 from .densenet import DenseNet3D, densecpd, densenet  # noqa: F401
+from .optimize import fold_timed_bn, timed_inference_apply  # noqa: F401
 from .prodconn import ProDCoNN, prodconn  # noqa: F401
+from .quantize import MODES, quantize_fn, quantized_conv3d, quantized_convs  # noqa: F401
 from .registry import MODEL_REGISTRY, ModelSpec, get_model_spec, load_model  # noqa: F401
 from .timed import (  # noqa: F401
     TIMED,

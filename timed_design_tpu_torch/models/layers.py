@@ -5,13 +5,17 @@ tensors; the model's public forward takes the JAX layout NDHWC and views it
 as NCDHW without a copy (the channels_last_3d memory format). Parameters
 are float32 and are cast to the compute dtype at each call, as Flax's
 ``dtype``/``param_dtype`` pair does. BatchNorm, pooling and the heads run in
-float32 (``at_least_float32``), or in float64 for a float64 module.
+float32 (``at_least_float32``), or in float64 for a float64 module. Every
+convolution of the zoo goes through ``conv3d``, which runs the mode of
+``models/quantize.py::quantized_convs`` when one is set.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .quantize import current_mode, quantized_conv3d
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -67,15 +71,26 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm3d(features, eps=1e-3, momentum=1.0 - bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        x = F.conv3d(x, self.conv.weight.to(dt), self.conv.bias.to(dt), padding=1)
-        x = F.elu(x)
-        return self.bn(at_least_float32(x)).to(dt)
+        x = F.elu(cast_conv(self.conv, x, padding=1))
+        return self.bn(at_least_float32(x)).to(x.dtype)
+
+
+def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+           padding: int = 0) -> torch.Tensor:
+    """The zoo's convolution: ``x`` (B, C, D, H, W) with ``weight`` and
+    ``bias`` cast to ``x``'s dtype, stride 1; quantized when a mode of
+    ``quantized_convs`` is set on this thread."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    mode = current_mode()
+    if mode is None:
+        return F.conv3d(x, w, b, padding=padding)
+    return quantized_conv3d(mode, x, w, b, padding)
 
 
 def cast_conv(conv: nn.Conv3d, x: torch.Tensor, padding: int = 0) -> torch.Tensor:
     """``conv`` applied in ``x``'s dtype, its float32 parameters cast."""
-    return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=padding)
+    return conv3d(x, conv.weight, conv.bias, padding)
 
 
 def dropout(

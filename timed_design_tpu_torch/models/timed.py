@@ -11,7 +11,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import ConvBlock, at_least_float32, global_average_pool_3d, spatial_dropout_3d
+from .layers import (
+    ConvBlock,
+    at_least_float32,
+    cast_conv,
+    global_average_pool_3d,
+    spatial_dropout_3d,
+)
 
 
 class TIMED(nn.Module):
@@ -47,7 +53,7 @@ class TIMED(nn.Module):
             x = spatial_dropout_3d(
                 x.permute(0, 2, 3, 4, 1), self.dropout_rate, True, generator
             ).permute(0, 4, 1, 2, 3)
-        x = nn.functional.conv3d(x, self.head.weight.to(dt), self.head.bias.to(dt))
+        x = cast_conv(self.head, x)
         x = global_average_pool_3d(at_least_float32(x))
         return x if logits else torch.softmax(x, dim=-1)
 
