@@ -1478,10 +1478,17 @@ TIMED_CONVS = [(5, 16, 3, 1), (16, 32, 3, 1), (32, 64, 3, 1), (64, 128, 3, 1), (
                (128, 338, 1, 0)]
 PER_FORWARD = 5
 QUANT_MODES = ("w8", "int8-fake", "int8")
-# A quantized float32 forward on the card against the CPU: the two sum the
-# float32 convolutions in another order, so an activation at a rounding tie
-# can take the next int8 code on one of them
-QUANT_CPU_TOL = 1e-4
+# A quantized float32 forward on the card against the same mode on the CPU,
+# on log-probabilities: the card must lie within this share of how far the
+# mode moves the output from the unquantized run on the card. A card path
+# that ran unquantized lies the whole move away. The two sum the float32
+# convolutions in another order, so an activation at a rounding tie can take
+# the next int8 code on one of them; one code a step apart moves the output
+# far less than rounding every code does.
+QUANT_CPU_SHARE = 0.1
+# ... and each mode must move the output by more than this many times the
+# card's float32 distance from the CPU unquantized (the sums' order alone)
+QUANT_MOVE_OVER_NOISE = 10
 # the registry models whose every convolution the kernel is held to
 ZOO = ("TIMED", "TIMED_rotamer", "TIMED_Deep", "ProDCoNN", "DenseNet", "DenseCPD")
 
@@ -1508,16 +1515,44 @@ def ubq_frames(n: int):
     return voxelize_frame_atoms(fa, codec, device="cuda")[:n]
 
 
+def replay_calls(calls, on_cpu: bool) -> tuple[dict, int]:
+    """Each recorded (xq, wq, padding, sums) of conv3d_int8 against
+    conv3d_int8_plain on the same codes, on a CPU copy or on the card
+    (float64 is exact on both): {(Cin, Cout, k, pad, D): equal}, and the
+    largest difference."""
+    import torch
+
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8_plain
+
+    checked, max_err = {}, 0
+    for xq, wq, pad, out in calls:
+        key = (xq.shape[-1], wq.shape[0], wq.shape[1], pad, xq.shape[1])
+        if on_cpu:
+            xq, wq, out = xq.cpu(), wq.cpu(), out.cpu()
+        want = conv3d_int8_plain(xq, wq, pad)
+        equal = torch.equal(out, want)
+        if not equal:
+            max_err = max(max_err, int((out.long() - want.long()).abs().max()))
+        checked[key] = checked.get(key, True) and equal
+        del want
+    return checked, max_err
+
+
 def check_conv_kernel() -> dict:
-    """conv3d_int8 against conv3d_int8_plain run on a CPU copy of the same
-    codes (torch.equal), at every convolution of the registry models in ZOO,
-    the codes those models' int8 forwards give on 4 frames of 1ubq (2 for
-    DenseCPD): every call of the kernel is recorded and replayed on the CPU.
-    Then, at each of registry TIMED's convolutions at batch 512 on random
-    codes: the kernel's device time (a CUDA graph of 5 calls), its bound,
-    cuDNN's bfloat16 F.conv3d of the same shape as context (not the same
-    function: no PyTorch call computes an int8 conv3d on CUDA), and the
-    plain version's time on the card (one call, after one warm-up)."""
+    """conv3d_int8 against conv3d_int8_plain (torch.equal):
+    (1) at every convolution of the registry models in ZOO, on the codes
+        those models' int8 forwards give on 4 frames of 1ubq (2 for
+        DenseCPD): every call of the kernel is recorded and replayed on a
+        CPU copy;
+    (2) at the main path's batch of 512: registry TIMED_rotamer's int8
+        forward of 1ubq's frames tiled to 512, each call replayed on the card;
+    (3) at each of registry TIMED's convolutions at batch 512 on random
+        codes, held to the plain version on the card, then timed: the
+        kernel's device time (a CUDA graph of 5 calls), its bound, the plain
+        version's time (one call, after one warm-up), the library call's
+        (one float64 F.conv3d of the codes, the same integer sums, a CUDA
+        graph of 1 call) and, as context only, cuDNN's bfloat16 F.conv3d of
+        the same shape (not the same function)."""
     import torch
     import torch.nn.functional as F
 
@@ -1532,27 +1567,36 @@ def check_conv_kernel() -> dict:
         calls.append((xq, wq, padding, out))
         return out
 
+    def forward(name: str, x) -> None:
+        torch.manual_seed(SEED)
+        model = MODEL_REGISTRY[name].build().to("cuda").eval()
+        with torch.inference_mode(), quantized_convs("int8"):
+            model(x)
+
     checked, max_err = {}, 0
     quantize.conv3d_int8 = record
     try:
         for name in ZOO:
-            torch.manual_seed(SEED)
-            model = MODEL_REGISTRY[name].build().to("cuda").eval()
-            with torch.inference_mode(), quantized_convs("int8"):
-                model(ubq_frames(2 if name == "DenseCPD" else 4))
-            for xq, wq, pad, out in calls:
-                key = (xq.shape[-1], wq.shape[0], wq.shape[1], pad, xq.shape[1])
-                want = conv3d_int8_plain(xq.cpu(), wq.cpu(), pad)
-                err = int((out.cpu().long() - want.long()).abs().max())
-                max_err = max(max_err, err)
-                checked[key] = checked.get(key, True) and torch.equal(out.cpu(), want)
+            forward(name, ubq_frames(2 if name == "DenseCPD" else 4))
+            got, err = replay_calls(calls, on_cpu=True)
             calls.clear()
+            max_err = max(max_err, err)
+            checked.update({k: checked.get(k, True) and v for k, v in got.items()})
+        forward("TIMED_rotamer", torch.cat([ubq_frames(76)] * 7)[:512])
+        at_batch, err = replay_calls(calls, on_cpu=False)
+        calls.clear()
+        max_err = max(max_err, err)
     finally:
         quantize.conv3d_int8 = conv3d_int8
+        calls.clear()
     log(f"conv3d_int8: {len(checked)} convolution shapes (Cin, Cout, k, pad, D) of {', '.join(ZOO)} "
         f"on 1ubq's int8 codes, equal to the plain version on the CPU: "
         f"{sum(checked.values())} of {len(checked)}; {sorted(checked)}")
+    log(f"conv3d_int8: TIMED_rotamer's int8 forward at batch 512 (1ubq's frames tiled), "
+        f"{len(at_batch)} calls equal to the plain version on the card: "
+        f"{sum(at_batch.values())} of {len(at_batch)}")
     assert all(checked.values()), f"kernel differs at {[k for k, v in checked.items() if not v]}"
+    assert len(at_batch) == PER_FORWARD and all(at_batch.values()), f"batch 512: {at_batch}"
 
     shapes = []
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1561,23 +1605,33 @@ def check_conv_kernel() -> dict:
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (cout, k, k, k, cin), generator=gen, device="cuda",
                           dtype=torch.int8)
+        equal, err = replay_calls([(x, w, pad, conv3d_int8(x, w, pad))], on_cpu=False)
+        max_err = max(max_err, err)
+        assert all(equal.values()), f"kernel differs from plain at batch 512: {cin}->{cout} k={k}"
         ms = graph_ms(lambda: conv3d_int8(x, w, pad), reps=5)
         xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
         wb = w.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
         cudnn_ms = graph_ms(lambda: F.conv3d(xb, wb, padding=pad), reps=5)
         del xb, wb
         plain_ms = time_ms(lambda: conv3d_int8_plain(x, w, pad), reps=1, warmup=1)
+        xd = x.permute(0, 4, 1, 2, 3).to(torch.float64)
+        wd = w.permute(0, 4, 1, 2, 3).to(torch.float64)
+        library_ms = graph_ms(lambda: F.conv3d(xd, wd, padding=pad), reps=1)
+        del xd, wd
         bound_ms, bound_by = conv_bound(512, 21, cin, cout, k, pad)
         shapes.append({"cin": cin, "cout": cout, "k": k, "pad": pad, "batch": 512, "ms": ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
-                       "cudnn_bf16_ms": cudnn_ms, "plain_ms": plain_ms})
-        log(f"conv3d_int8 {cin}->{cout} k={k} pad={pad}, batch 512 at 21^3: device {ms:.3f} ms "
-            f"(a graph of 5), bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}; "
-            f"cuDNN bf16 conv3d (context) {cudnn_ms:.3f} ms; plain (float64 conv3d) "
-            f"{plain_ms:.1f} ms; {gpu_name_and_power()}")
+                       "cudnn_bf16_ms": cudnn_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "equal_to_plain": True})
+        log(f"conv3d_int8 {cin}->{cout} k={k} pad={pad}, batch 512 at 21^3: equal to the plain "
+            f"version on the card; device {ms:.3f} ms (a graph of 5), bound {bound_ms:.3f} ms "
+            f"({bound_by}), share {bound_ms / ms:.3f}; library (float64 F.conv3d of the codes) "
+            f"{library_ms:.3f} ms; plain {plain_ms:.1f} ms; cuDNN bf16 conv3d (context) "
+            f"{cudnn_ms:.3f} ms; {gpu_name_and_power()}")
         del x, w
-    torch.cuda.empty_cache()
-    return {"shapes_checked": len(checked), "max_abs_err": max_err, "per_shape": shapes}
+        torch.cuda.empty_cache()
+    return {"shapes_checked": len(checked), "batch_512_calls_checked": len(at_batch),
+            "max_abs_err": max_err, "per_shape": shapes}
 
 
 def td_predict_argv(model: str, inputs: Path, out: Path, dtype: str, quantize: str | None):
@@ -1619,12 +1673,15 @@ def check_quantize() -> dict:
     (2) /design 1ubq through DesignSession(quantize=m) of registry
         TIMED_rotamer, float32 (TF32 off) and bfloat16, each mode against
         the unquantized run (argmax agreement >= 0.95, the JAX package's
-        pin) and, in float32, against the same mode on the CPU (QUANT_CPU_TOL);
+        pin) and moving it (max |dlog p| > 0); in float32 at batch 80, each
+        mode on the card against the CPU within QUANT_CPU_SHARE of its move,
+        and the move over QUANT_MOVE_OVER_NOISE x the unquantized distance;
     (3) td-predict --voxelize --quantize int8 as a CLI subprocess over the
         988 frames, TIMED and TIMED_rotamer in bfloat16: the artifact set,
         and PER_FORWARD launches per batch per model;
     (4) warm td-predict frames/s of registry TIMED in bfloat16 in-process,
-        unquantized and in each mode;
+        unquantized and in each mode; each mode's probabilities against the
+        unquantized ones (argmax agreement >= 0.95, and moved);
     (5) td-serve --quantize int8: one /design with 100 samples launches the
         sampling kernel once and the int8 kernel PER_FORWARD times;
     (6) timed_inference_apply against registry TIMED's forward at batch 512
@@ -1652,29 +1709,47 @@ def check_quantize() -> dict:
     try:
         for dtype in ("float32", "bfloat16"):
             got = design_modes(dtype, "cuda", 512)
+            logp = {m: np.log(np.maximum(p, 1e-30)) for m, p in got.items()}
             modes[dtype] = {m: {"argmax_agreement": float((got[m].argmax(1) == got[None].argmax(1))
                                                            .mean()),
-                                "max_abs_dp": float(np.abs(got[m] - got[None]).max())}
+                                "max_abs_dp": float(np.abs(got[m] - got[None]).max()),
+                                "max_abs_dlogp": float(np.abs(logp[m] - logp[None]).max())}
                             for m in QUANT_MODES}
             if dtype == "float32":
+                # card and CPU at one batch (80: one batch of 1ubq's 76
+                # frames), since the activation scale spans the padded batch
                 torch.manual_seed(0)
                 cpu_model = MODEL_REGISTRY["TIMED_rotamer"].build()  # the seed's weights
-                cpu = design_modes(dtype, "cpu", 80, cpu_model)
+                cpu = {m: np.log(np.maximum(p, 1e-30))
+                       for m, p in design_modes(dtype, "cpu", 80, cpu_model).items()}
+                card = {m: np.log(np.maximum(p, 1e-30))
+                        for m, p in design_modes(dtype, "cuda", 80).items()}
                 for m in (None, *QUANT_MODES):
-                    err = float(np.abs(got[m] - cpu[m]).max())
-                    modes[dtype].setdefault(m or "none", {})["card_vs_cpu_max_abs_dp"] = err
-            for m in QUANT_MODES:
-                log(f"quantize {m} {dtype}: TIMED_rotamer 1ubq against unquantized: argmax "
-                    f"agreement {modes[dtype][m]['argmax_agreement']:.4f}, max |dp| "
-                    f"{modes[dtype][m]['max_abs_dp']:.3g}" + (
-                        f"; card against CPU max |dp| {modes[dtype][m]['card_vs_cpu_max_abs_dp']:.3g}"
-                        if dtype == "float32" else ""))
-                assert modes[dtype][m]["argmax_agreement"] >= 0.95, (dtype, m)
-                if dtype == "float32":
-                    assert modes[dtype][m]["card_vs_cpu_max_abs_dp"] <= QUANT_CPU_TOL, (dtype, m)
-            if dtype == "float32":
+                    row = modes[dtype].setdefault(m or "none", {})
+                    row["card_vs_cpu_max_abs_dp"] = float(np.abs(np.exp(card[m])
+                                                                 - np.exp(cpu[m])).max())
+                    row["card_vs_cpu_max_abs_dlogp"] = float(np.abs(card[m] - cpu[m]).max())
+                    row["batch_80_max_abs_dlogp"] = float(np.abs(card[m] - card[None]).max())
+                noise = modes[dtype]["none"]["card_vs_cpu_max_abs_dlogp"]
                 log(f"quantize none float32: card against CPU max |dp| "
-                    f"{modes[dtype]['none']['card_vs_cpu_max_abs_dp']:.3g}")
+                    f"{modes[dtype]['none']['card_vs_cpu_max_abs_dp']:.3g}, max |dlog p| "
+                    f"{noise:.3g}")
+            for m in QUANT_MODES:
+                row = modes[dtype][m]
+                log(f"quantize {m} {dtype}: TIMED_rotamer 1ubq against unquantized: argmax "
+                    f"agreement {row['argmax_agreement']:.4f}, max |dp| {row['max_abs_dp']:.3g}, "
+                    f"max |dlog p| {row['max_abs_dlogp']:.3g}" + (
+                        f"; batch 80, card against CPU max |dp| "
+                        f"{row['card_vs_cpu_max_abs_dp']:.3g}, max |dlog p| "
+                        f"{row['card_vs_cpu_max_abs_dlogp']:.3g} (limit {QUANT_CPU_SHARE} x the "
+                        f"move {row['batch_80_max_abs_dlogp']:.3g})"
+                        if dtype == "float32" else ""))
+                assert row["argmax_agreement"] >= 0.95, (dtype, m)
+                assert row["max_abs_dlogp"] > 0, f"{m} {dtype} did not move the output"
+                if dtype == "float32":
+                    move = row["batch_80_max_abs_dlogp"]
+                    assert move > QUANT_MOVE_OVER_NOISE * noise, (dtype, m, move, noise)
+                    assert row["card_vs_cpu_max_abs_dlogp"] <= QUANT_CPU_SHARE * move, (dtype, m)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     out["modes"] = modes
@@ -1706,17 +1781,24 @@ def check_quantize() -> dict:
 
         # (4) warm frames/s per mode, in-process
         conv3d_int8.launches = 0
-        fps = {}
+        fps, probs = {}, {}
         for m in (None, *QUANT_MODES):
             for run in range(2):
                 dest = work / f"fps_{m}_{run}"
                 result = predict_main(td_predict_argv("TIMED", inputs, dest, "bfloat16", m))
             n = check_td_predict_outputs(dest, "TIMED", False, True)
             fps[m or "none"] = n / result.timings["predict"]
+            probs[m] = np.concatenate([result.pdb_to_probability[k]
+                                       for k in sorted(result.pdb_to_probability)])
         in_process = conv3d_int8.launches
         assert in_process == 2 * PER_FORWARD * -(-n // 512), in_process
         log("td-predict TIMED bf16, 988 frames, batch 512, warm predict frames/s: " + ", ".join(
             f"{k} {v:.0f}" for k, v in fps.items()) + f"; {gpu_name_and_power()}")
+        moved = {m: (float((probs[m].argmax(1) == probs[None].argmax(1)).mean()),
+                     float(np.abs(probs[m] - probs[None]).max())) for m in QUANT_MODES}
+        log("td-predict TIMED bf16 against unquantized, argmax agreement and max |dp|: " + ", ".join(
+            f"{m} {a:.4f} {d:.3g}" for m, (a, d) in moved.items()))
+        assert all(a >= 0.95 and d > 0 for a, d in moved.values()), moved
         out["td_predict_frames_per_s"] = fps
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1866,7 +1948,8 @@ def main() -> int:
         "plain_ms": conv_main["plain_ms"],
         "bound_ms": conv_main["bound_ms"],
         "bound_by": conv_main["bound_by"],
-        "library_ms": None,  # PyTorch has no int8 conv3d on CUDA
+        # one float64 F.conv3d of the codes: the same int32 sums
+        "library_ms": conv_main["library_ms"],
         "cudnn_bf16_ms": conv_main["cudnn_bf16_ms"],
         "shape": [conv_main["batch"], 21, conv_main["cin"], conv_main["cout"], conv_main["k"]],
         "shapes_equal_to_plain": quantize["kernel"]["shapes_checked"],
