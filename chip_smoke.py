@@ -37,9 +37,12 @@ an output is wrong:
     share) on those frames and on a set of 512 structures; TIMED overfit on
     1ubq, its checkpoint through ``td-predict --voxelize``. It reaches no
     kernel of the port either;
-  - quantized inference: the int8 convolution kernel held to its plain
-    version on every convolution shape of six registry models and timed at
-    TIMED's shapes at batch 512; each ``--quantize`` mode through
+  - quantized inference: the int8 convolution kernel, its int32 route and
+    its fused rescale, cast and bias, held to its plain version on every
+    convolution shape of six registry models and timed at TIMED's shapes at
+    batch 512 against the int32 route plus the PyTorch epilogue; one TIMED
+    int8 forward's device time split into the kernel, the quantization
+    passes and the rest, fused and unfused; each ``--quantize`` mode through
     DesignSession (float32 against the CPU, bfloat16); ``td-predict
     --voxelize --quantize int8`` as a subprocess and in-process (frames/s
     per mode); ``td-serve --quantize int8`` with samples, which launches
@@ -1493,14 +1496,17 @@ QUANT_MOVE_OVER_NOISE = 10
 ZOO = ("TIMED", "TIMED_rotamer", "TIMED_Deep", "ProDCoNN", "DenseNet", "DenseCPD")
 
 
-def conv_bound(B: int, D: int, cin: int, cout: int, k: int, pad: int) -> tuple[float, str]:
+def conv_bound(B: int, D: int, cin: int, cout: int, k: int, pad: int,
+               out_bytes: int = 4) -> tuple[float, str]:
     """Least time (ms) of an int8 convolution of B (D^3, cin) frames into
-    cout channels: its int8 input and weights read once and its int32 sums
-    written once over the memory rate, or 2 M N K operations over the int8
-    peak, whichever is longer."""
+    cout channels: its int8 input and weights read once and its output
+    written once (``out_bytes`` a value: 4 for the int32 sums or float32, 2
+    for bfloat16; a scale and a bias of cout values are too few to count)
+    over the memory rate, or 2 M N K operations over the int8 peak,
+    whichever is longer."""
     m = B * (D + 2 * pad - k + 1) ** 3
     kk = k ** 3 * cin
-    t_bytes = (B * D ** 3 * cin + cout * kk + 4 * m * cout) / HBM_BYTES_PER_S
+    t_bytes = (B * D ** 3 * cin + cout * kk + out_bytes * m * cout) / HBM_BYTES_PER_S
     t_ops = 2 * m * cout * kk / INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1515,31 +1521,85 @@ def ubq_frames(n: int):
     return voxelize_frame_atoms(fa, codec, device="cuda")[:n]
 
 
-def replay_calls(calls, on_cpu: bool) -> tuple[dict, int]:
-    """Each recorded (xq, wq, padding, sums) of conv3d_int8 against
-    conv3d_int8_plain on the same codes, on a CPU copy or on the card
-    (float64 is exact on both): {(Cin, Cout, k, pad, D): equal}, and the
-    largest difference."""
+# the fused epilogues each recorded call is also run in: (dtype, with a bias)
+FUSED_ROUTES = [(dt, b) for dt in ("float32", "bfloat16") for b in (False, True)]
+
+
+def fused_variants(scale, bias):
+    """(scale, bias, out_dtype) of each of FUSED_ROUTES for a call of the
+    fused route recorded with ``scale`` and ``bias``: its own bias cast to
+    the dtype, or a seeded one where it had none."""
     import torch
 
-    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8_plain
+    out = []
+    for name, with_bias in FUSED_ROUTES:
+        dt = getattr(torch, name)
+        b = None
+        if with_bias:
+            b = bias.to(dt) if bias is not None else torch.linspace(
+                -1, 1, scale.numel(), device=scale.device).to(dt)
+        out.append((scale, b, dt))
+    return out
 
-    checked, max_err = {}, 0
-    for xq, wq, pad, out in calls:
+
+def replay_calls(calls, on_cpu: bool) -> tuple[dict, float]:
+    """Each recorded call of conv3d_int8 (xq, wq, padding, scale, bias,
+    out_dtype, output) against conv3d_int8_plain on the same codes, on a CPU
+    copy or on the card (float64 is exact on both), torch.equal: the
+    recorded output; the int32 route on the same codes; and the fused route
+    in float32 and bfloat16, with and without a bias. Returns {(Cin, Cout, k,
+    pad, D): all equal} and the largest difference."""
+    import torch
+
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8, conv3d_int8_plain
+
+    checked, max_err = {}, 0.0
+
+    def same(got, want) -> bool:
+        nonlocal max_err
+        got = got.cpu() if on_cpu else got
+        if torch.equal(got, want):
+            return True
+        max_err = max(max_err, float((got.double() - want.double()).abs().max()))
+        return False
+
+    for xq, wq, pad, scale, bias, dt, out in calls:
         key = (xq.shape[-1], wq.shape[0], wq.shape[1], pad, xq.shape[1])
-        if on_cpu:
-            xq, wq, out = xq.cpu(), wq.cpu(), out.cpu()
-        want = conv3d_int8_plain(xq, wq, pad)
-        equal = torch.equal(out, want)
-        if not equal:
-            max_err = max(max_err, int((out.long() - want.long()).abs().max()))
+        acc = conv3d_int8_plain(*((xq.cpu(), wq.cpu()) if on_cpu else (xq, wq)), pad)
+        routes = [(scale, bias, dt, out), (None, None, None, None)]
+        if scale is not None:
+            routes += [(*v, None) for v in fused_variants(scale, bias)]
+        equal = True
+        for s, b, d, got in routes:  # one output on the card at a time
+            if got is None:
+                got = conv3d_int8(xq, wq, pad, s, b, d)
+            if s is None:
+                want = acc
+            else:
+                if on_cpu:
+                    s, b = s.cpu(), None if b is None else b.cpu()
+                want = acc.to(torch.float32).mul_(s).to(d)
+                want = want if b is None else want + b
+            equal = same(got, want) and equal
+            del got, want
         checked[key] = checked.get(key, True) and equal
-        del want
+        del acc
     return checked, max_err
 
 
+def epilogue_unfused(acc, scale, bias, out_dtype):
+    """The int8 branch's PyTorch epilogue before it was fused: the int32
+    sums to float32, times the scale, cast, plus the bias."""
+    import torch
+
+    out = acc.to(torch.float32).mul_(scale).to(out_dtype)
+    return out if bias is None else out + bias
+
+
 def check_conv_kernel() -> dict:
-    """conv3d_int8 against conv3d_int8_plain (torch.equal):
+    """conv3d_int8 against conv3d_int8_plain (torch.equal), both routes: the
+    int32 sums, and the fused rescale, cast and bias in float32 and
+    bfloat16, with and without a bias (replay_calls):
     (1) at every convolution of the registry models in ZOO, on the codes
         those models' int8 forwards give on 4 frames of 1ubq (2 for
         DenseCPD): every call of the kernel is recorded and replayed on a
@@ -1547,8 +1607,11 @@ def check_conv_kernel() -> dict:
     (2) at the main path's batch of 512: registry TIMED_rotamer's int8
         forward of 1ubq's frames tiled to 512, each call replayed on the card;
     (3) at each of registry TIMED's convolutions at batch 512 on random
-        codes, held to the plain version on the card, then timed: the
-        kernel's device time (a CUDA graph of 5 calls), its bound, the plain
+        codes, held to the plain version on the card, then timed: the fused
+        kernel's device time in bfloat16 with a bias (a CUDA graph of 5
+        calls), the same function before it was fused (the int32 route plus
+        the PyTorch epilogue, a graph of 5), the int32 route alone, each
+        against its bound (2 and 4 bytes an output value), the plain
         version's time (one call, after one warm-up), the library call's
         (one float64 F.conv3d of the codes, the same integer sums, a CUDA
         graph of 1 call) and, as context only, cuDNN's bfloat16 F.conv3d of
@@ -1562,9 +1625,9 @@ def check_conv_kernel() -> dict:
 
     calls = []
 
-    def record(xq, wq, padding=0):
-        out = conv3d_int8(xq, wq, padding)
-        calls.append((xq, wq, padding, out))
+    def record(xq, wq, padding=0, scale=None, bias=None, out_dtype=None):
+        out = conv3d_int8(xq, wq, padding, scale, bias, out_dtype)
+        calls.append((xq, wq, padding, scale, bias, out_dtype, out))
         return out
 
     def forward(name: str, x) -> None:
@@ -1573,7 +1636,7 @@ def check_conv_kernel() -> dict:
         with torch.inference_mode(), quantized_convs("int8"):
             model(x)
 
-    checked, max_err = {}, 0
+    checked, max_err = {}, 0.0
     quantize.conv3d_int8 = record
     try:
         for name in ZOO:
@@ -1589,11 +1652,13 @@ def check_conv_kernel() -> dict:
     finally:
         quantize.conv3d_int8 = conv3d_int8
         calls.clear()
+    routes = "int32 and fused (" + ", ".join(f"{d}{' + bias' if b else ''}"
+                                            for d, b in FUSED_ROUTES) + ")"
     log(f"conv3d_int8: {len(checked)} convolution shapes (Cin, Cout, k, pad, D) of {', '.join(ZOO)} "
-        f"on 1ubq's int8 codes, equal to the plain version on the CPU: "
+        f"on 1ubq's int8 codes, {routes} equal to the plain version on the CPU: "
         f"{sum(checked.values())} of {len(checked)}; {sorted(checked)}")
     log(f"conv3d_int8: TIMED_rotamer's int8 forward at batch 512 (1ubq's frames tiled), "
-        f"{len(at_batch)} calls equal to the plain version on the card: "
+        f"{len(at_batch)} calls, {routes} equal to the plain version on the card: "
         f"{sum(at_batch.values())} of {len(at_batch)}")
     assert all(checked.values()), f"kernel differs at {[k for k, v in checked.items() if not v]}"
     assert len(at_batch) == PER_FORWARD and all(at_batch.values()), f"batch 512: {at_batch}"
@@ -1605,33 +1670,260 @@ def check_conv_kernel() -> dict:
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (cout, k, k, k, cin), generator=gen, device="cuda",
                           dtype=torch.int8)
-        equal, err = replay_calls([(x, w, pad, conv3d_int8(x, w, pad))], on_cpu=False)
+        # scales of the size quantize.py makes (s_x s_w), a bias in bfloat16
+        scale = torch.rand(cout, generator=gen, device="cuda") * 1e-4 + 1e-5
+        bias = torch.randn(cout, generator=gen, device="cuda").to(torch.bfloat16)
+        fused = conv3d_int8(x, w, pad, scale, bias, torch.bfloat16)
+        equal, err = replay_calls([(x, w, pad, scale, bias, torch.bfloat16, fused)], on_cpu=False)
         max_err = max(max_err, err)
+        del fused
         assert all(equal.values()), f"kernel differs from plain at batch 512: {cin}->{cout} k={k}"
-        ms = graph_ms(lambda: conv3d_int8(x, w, pad), reps=5)
+        ms = graph_ms(lambda: conv3d_int8(x, w, pad, scale, bias, torch.bfloat16), reps=5)
+        before_ms = graph_ms(lambda: epilogue_unfused(conv3d_int8(x, w, pad), scale, bias,
+                                                      torch.bfloat16), reps=5)
+        int32_ms = graph_ms(lambda: conv3d_int8(x, w, pad), reps=5)
         xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
         wb = w.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
         cudnn_ms = graph_ms(lambda: F.conv3d(xb, wb, padding=pad), reps=5)
         del xb, wb
-        plain_ms = time_ms(lambda: conv3d_int8_plain(x, w, pad), reps=1, warmup=1)
+        plain_ms = time_ms(lambda: conv3d_int8_plain(x, w, pad, scale, bias, torch.bfloat16),
+                           reps=1, warmup=1)
         xd = x.permute(0, 4, 1, 2, 3).to(torch.float64)
         wd = w.permute(0, 4, 1, 2, 3).to(torch.float64)
         library_ms = graph_ms(lambda: F.conv3d(xd, wd, padding=pad), reps=1)
         del xd, wd
-        bound_ms, bound_by = conv_bound(512, 21, cin, cout, k, pad)
+        bound_ms, bound_by = conv_bound(512, 21, cin, cout, k, pad, 2)
+        int32_bound_ms, int32_bound_by = conv_bound(512, 21, cin, cout, k, pad, 4)
         shapes.append({"cin": cin, "cout": cout, "k": k, "pad": pad, "batch": 512, "ms": ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+                       "int32_epilogue_ms": before_ms, "int32_ms": int32_ms,
+                       "int32_bound_ms": int32_bound_ms, "int32_bound_by": int32_bound_by,
+                       "int32_bound_share": int32_bound_ms / int32_ms,
                        "cudnn_bf16_ms": cudnn_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        "equal_to_plain": True})
-        log(f"conv3d_int8 {cin}->{cout} k={k} pad={pad}, batch 512 at 21^3: equal to the plain "
-            f"version on the card; device {ms:.3f} ms (a graph of 5), bound {bound_ms:.3f} ms "
-            f"({bound_by}), share {bound_ms / ms:.3f}; library (float64 F.conv3d of the codes) "
+        log(f"conv3d_int8 {cin}->{cout} k={k} pad={pad}, batch 512 at 21^3: both routes equal to "
+            f"the plain version on the card; fused bf16 + bias {ms:.3f} ms (a graph of 5), bound "
+            f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}; the same function "
+            f"before (int32 route + PyTorch epilogue) {before_ms:.3f} ms; int32 route {int32_ms:.3f}"
+            f" ms, bound {int32_bound_ms:.3f} ms ({int32_bound_by}), share "
+            f"{int32_bound_ms / int32_ms:.3f}; library (float64 F.conv3d of the codes) "
             f"{library_ms:.3f} ms; plain {plain_ms:.1f} ms; cuDNN bf16 conv3d (context) "
             f"{cudnn_ms:.3f} ms; {gpu_name_and_power()}")
         del x, w
         torch.cuda.empty_cache()
+    five = sum(s["ms"] for s in shapes[:PER_FORWARD])
+    log(f"conv3d_int8: TIMED's five fused launches per forward at batch 512 {five:.3f} ms; the same "
+        f"five before {sum(s['int32_epilogue_ms'] for s in shapes[:PER_FORWARD]):.3f} ms; cuDNN "
+        f"bf16 (context) {sum(s['cudnn_bf16_ms'] for s in shapes[:PER_FORWARD]):.3f} ms; bound "
+        f"{sum(s['bound_ms'] for s in shapes[:PER_FORWARD]):.3f} ms")
     return {"shapes_checked": len(checked), "batch_512_calls_checked": len(at_batch),
             "max_abs_err": max_err, "per_shape": shapes}
+
+
+class Int32Ops:
+    """The operators a region runs on an int32 tensor (a TorchDispatchMode
+    made when entered): the unfused epilogue's casts of the sums."""
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        ops = self.ops = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if any(isinstance(a, torch.Tensor) and a.dtype == torch.int32
+                       for a in tree_leaves((args, kwargs))):
+                    ops.append(str(func))
+                return func(*args, **kwargs)
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def int8_forward_split() -> dict:
+    """One registry TIMED int8 forward in bfloat16 at batch 512 (1ubq's
+    frames tiled) split by device time, for two designs on the same weights
+    and frames: "fused" (this kernel, as the port runs it) and "unfused"
+    (the int32 route plus the PyTorch epilogue, the design before the
+    epilogue was fused). Each part is a CUDA graph of its operations
+    (graph_ms), so no host time sits between them:
+      - forward: the whole forward;
+      - quantize: the weight and activation quantization passes of the five
+        convolutions (quantize_weight, quantize_activation, the casts of the
+        codes to int8 and s_x s_w), on the inputs the forward gave them;
+      - kernel: the five conv3d_int8 calls (with the wrapper's preparation:
+        the weights' re-layout, the first layer's zero channels);
+      - epilogue: the unfused design's five PyTorch epilogues;
+      - other: the forward less those (ELU, BatchNorm, pooling, softmax).
+    Also the warm eager forward (CUDA events, 5 forwards) and the operators
+    each design runs on int32 tensors (none when fused)."""
+    import torch
+
+    import timed_design_tpu_torch.models.layers as layers
+    import timed_design_tpu_torch.models.quantize as quantize
+    from timed_design_tpu_torch.models import MODEL_REGISTRY, quantized_convs
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+
+    torch.manual_seed(SEED)
+    model = MODEL_REGISTRY["TIMED"].build().to("cuda").eval()
+    model.compute_dtype = torch.bfloat16
+    x = torch.cat([ubq_frames(76)] * 7)[:512]
+    original = layers.quantized_conv3d
+    inputs = []  # (x, weight, bias, padding) of each quantized convolution
+
+    def recording(mode, xc, w, b, padding=0):
+        inputs.append((xc, w, b, padding))
+        return original(mode, xc, w, b, padding)
+
+    def unfused(xq, wq, padding, scale, bias=None, out_dtype=None):
+        return epilogue_unfused(conv3d_int8(xq, wq, padding), scale, bias,
+                                out_dtype or torch.float32)
+
+    def forward():
+        with torch.inference_mode(), quantized_convs("int8"):
+            return model(x)
+
+    def codes(xc, w, padding):
+        wq, s_w = quantize.quantize_weight(w)
+        xq, s_x = quantize.quantize_activation(xc)
+        return (xq.to(torch.int8).permute(0, 2, 3, 4, 1), wq.to(torch.int8).permute(0, 2, 3, 4, 1),
+                padding, s_x * s_w)
+
+    layers.quantized_conv3d = recording
+    try:
+        forward()
+    finally:
+        layers.quantized_conv3d = original
+    assert len(inputs) == PER_FORWARD, len(inputs)
+    with torch.inference_mode():
+        quantize_ms = graph_ms(lambda: [codes(xc, w, pad) for xc, w, _, pad in inputs], reps=1)
+        calls = [(codes(xc, w, pad), None if b is None else b.to(xc.dtype), xc.dtype)
+                 for xc, w, b, pad in inputs]
+        sums = [conv3d_int8(*c[:3]) for c, _, _ in calls]
+        parts = {
+            "fused": {"kernel_ms": graph_ms(lambda: [conv3d_int8(*c, b, dt) for c, b, dt in calls],
+                                            reps=1),
+                      "epilogue_ms": 0.0},
+            "unfused": {"kernel_ms": graph_ms(lambda: [conv3d_int8(*c[:3]) for c, _, _ in calls],
+                                              reps=1),
+                        "epilogue_ms": graph_ms(lambda: [
+                            epilogue_unfused(acc, c[3], b, dt)
+                            for acc, (c, b, dt) in zip(sums, calls)], reps=1)},
+        }
+        del sums, calls
+    out = {}
+    try:
+        for design, route in (("unfused", unfused), ("fused", conv3d_int8), ("unfused", unfused)):
+            quantize.conv3d_int8 = route
+            with Int32Ops() as int32:
+                forward()
+            eager_ms = time_ms(forward, reps=5, warmup=1)
+            with torch.inference_mode():
+                forward_ms = graph_ms(forward, reps=1)
+            row = {"eager_forward_ms": eager_ms, "forward_ms": forward_ms, "quantize_ms": quantize_ms,
+                   **parts[design], "int32_ops": sorted(set(int32.ops))}
+            row["other_ms"] = forward_ms - quantize_ms - row["kernel_ms"] - row["epilogue_ms"]
+            out.setdefault(design, []).append(row)
+            log(f"TIMED int8 forward, bf16, batch 512, {design}: eager {eager_ms:.3f} ms a forward; "
+                f"device (CUDA graphs) {forward_ms:.3f} ms = kernel {row['kernel_ms']:.3f} + "
+                f"epilogue {row['epilogue_ms']:.3f} + quantization {quantize_ms:.3f} + other "
+                f"{row['other_ms']:.3f}; ops on int32 tensors: {row['int32_ops'] or 'none'}; "
+                f"{gpu_name_and_power()}")
+    finally:
+        quantize.conv3d_int8 = conv3d_int8
+    assert not out["fused"][0]["int32_ops"], out["fused"]
+    assert all(r["int32_ops"] for r in out["unfused"]), out["unfused"]
+    return out
+
+
+def conv3d_int8_versus_parent(parent_src: str, batch: int = 512) -> list:
+    """The int8 kernel against an earlier version of it on one card, in one
+    process, at registry TIMED's convolutions; not part of main().
+
+        python3 -c "import chip_smoke as c; c.conv3d_int8_versus_parent('OLD/conv3d_int8.cu')"
+
+    OLD is the ``timed_design_tpu_torch/csrc`` of an earlier checkout (``git
+    archive`` it into a git-ignored directory of the repo), whose
+    ``conv3d_int8`` has the int32-only C interface (x, w, out, B, D, H, W, C,
+    N, k, pad, stream). For each shape at ``batch`` on 21^3 frames (random
+    codes, an (N,) scale, a bfloat16 bias) it checks the two kernels' int32
+    sums equal and the fused output equal to its plain version on the card,
+    then times, each as a CUDA graph of 5 calls, in turns (the order, then
+    reversed):
+      - old: the earlier kernel's int32 sums plus the PyTorch epilogue, the
+        function the int8 branch computed before the epilogue was fused;
+      - new_int32_epilogue: the same with this checkout's int32 route;
+      - new_fused: this checkout's kernel, sums, rescale, cast and bias in
+        one launch;
+      - old_int32 and new_int32: each kernel's int32 sums alone.
+    Logs a line per shape with the card's name and power limit and returns
+    the rows."""
+    import ctypes
+
+    import torch
+
+    from timed_design_tpu_torch.ops import _build
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8, conv3d_int8_plain
+
+    lib = _build.BUILD_DIR / "libconv3d_int8_parent.so"
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), parent_src], check=True,
+                   capture_output=True)
+    parent = ctypes.CDLL(str(lib))
+    parent.conv3d_int8.restype = ctypes.c_int
+    parent.conv3d_int8.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    card = gpu_name_and_power()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for cin, cout, k, pad in TIMED_CONVS:
+        x = torch.randint(-127, 128, (batch, 21, 21, 21, cin), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (cout, k, k, k, cin), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        scale = torch.rand(cout, generator=gen, device="cuda") * 1e-4 + 1e-5
+        bias = torch.randn(cout, generator=gen, device="cuda").to(torch.bfloat16)
+        do = 21 + 2 * pad - k + 1
+        old_out = torch.empty((batch, do, do, do, cout), dtype=torch.int32, device="cuda")
+
+        def old_int32():
+            err = parent.conv3d_int8(x.data_ptr(), w.data_ptr(), old_out.data_ptr(), batch, 21,
+                                     21, 21, cin, cout, k, pad,
+                                     torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+            return old_out
+
+        fns = {
+            "old": lambda: epilogue_unfused(old_int32(), scale, bias, torch.bfloat16),
+            "new_int32_epilogue": lambda: epilogue_unfused(conv3d_int8(x, w, pad), scale, bias,
+                                                           torch.bfloat16),
+            "new_fused": lambda: conv3d_int8(x, w, pad, scale, bias, torch.bfloat16),
+            "old_int32": old_int32,
+            "new_int32": lambda: conv3d_int8(x, w, pad),
+        }
+        assert torch.equal(old_int32(), conv3d_int8(x, w, pad)), (cin, cout)
+        assert torch.equal(fns["new_fused"](),
+                           conv3d_int8_plain(x, w, pad, scale, bias, torch.bfloat16)), (cin, cout)
+        times = {name: [] for name in fns}
+        for turn in (list(fns), list(fns)[::-1]):
+            for name in turn:
+                times[name].append(graph_ms(fns[name], reps=5))
+        bound_ms, bound_by = conv_bound(batch, 21, cin, cout, k, pad, 2)
+        rows.append({"cin": cin, "cout": cout, "k": k, "pad": pad, "batch": batch, "card": card,
+                     "bound_bf16_ms": bound_ms, "bound_by": bound_by,
+                     **{f"{name}_ms": t for name, t in times.items()}})
+        log(f"conv3d_int8 versus parent {cin}->{cout} k={k}: " + ", ".join(
+            f"{name} {' / '.join(f'{t:.3f}' for t in ts)} ms" for name, ts in times.items())
+            + f"; bound (bf16 out) {bound_ms:.3f} ms ({bound_by}); {card}")
+        del x, w, old_out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def td_predict_argv(model: str, inputs: Path, out: Path, dtype: str, quantize: str | None):
@@ -1701,7 +1993,7 @@ def check_quantize() -> dict:
     from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
 
     t_phase = time.perf_counter()
-    out = {"kernel": check_conv_kernel()}
+    out = {"kernel": check_conv_kernel(), "forward_split": int8_forward_split()}
 
     # (2) each mode on the card, and the card against the CPU in float32
     modes = {}
@@ -1950,10 +2242,13 @@ def main() -> int:
         "bound_by": conv_main["bound_by"],
         # one float64 F.conv3d of the codes: the same int32 sums
         "library_ms": conv_main["library_ms"],
+        # the same function before the epilogue was fused: int32 route + PyTorch
+        "int32_epilogue_ms": conv_main["int32_epilogue_ms"],
         "cudnn_bf16_ms": conv_main["cudnn_bf16_ms"],
         "shape": [conv_main["batch"], 21, conv_main["cin"], conv_main["cout"], conv_main["k"]],
         "shapes_equal_to_plain": quantize["kernel"]["shapes_checked"],
         "per_shape": quantize["kernel"]["per_shape"],
+        "forward_split": quantize["forward_split"],
     }]}), flush=True)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_power(), flush=True)

@@ -107,6 +107,138 @@ def test_conv3d_int8_refuses_what_the_kernel_does_not_take():
                        torch.zeros((1, 3, 3, 3, 4931), dtype=torch.int8)).shape == (1, 1, 1, 1, 1)
 
 
+OUT_DTYPES = ("float32", "bfloat16", "float16")
+# the ZOO_SHAPES (below) that the CPU's float64 convolution takes in well
+# under a second at one frame: the rest differ from these only in size
+CPU_ZOO_SHAPES = [(5, 16, 3, 1, 21), (16, 32, 3, 1, 21), (128, 20, 1, 0, 21),
+                  (128, 338, 1, 0, 21), (5, 16, 4, 0, 21), (32, 64, 3, 0, 8),
+                  (36, 48, 1, 0, 21), (48, 12, 3, 1, 21), (42, 48, 1, 0, 10), (78, 48, 1, 0, 5)]
+
+
+def _epilogue_inputs(cout, dtype, seed):
+    """(N,) float32 scales of the size quantize.py makes (s_x s_w) and an
+    (N,) bias in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    scale = torch.from_numpy((rng.uniform(0.5, 2.0, cout) * 1e-4).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)).to(dtype)
+    return scale, bias
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("dtype", OUT_DTYPES)
+def test_conv3d_int8_fused_plain_equals_composition(dtype, with_bias):
+    """The fused function (sums, rescale, cast, bias) equals, bit for bit,
+    the PyTorch composition the int8 branch ran before it was fused:
+    int32 sums, ``.to(float32).mul_(s)``, NCDHW view, ``.to(dt)``, then
+    ``+ bias.view(-1, 1, 1, 1)``; through the wrapper (the CPU runs the
+    plain version) and the plain version, at the zoo's shapes on one
+    frame."""
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8, conv3d_int8_plain
+
+    dt = getattr(torch, dtype)
+    for cin, cout, k, pad, s in CPU_ZOO_SHAPES:
+        x = torch.from_numpy(_codes((1, s, s, s, cin), cin))
+        w = torch.from_numpy(_codes((cout, k, k, k, cin), cout))
+        scale, bias = _epilogue_inputs(cout, dt, cout + k)
+        bias = bias if with_bias else None
+        acc = conv3d_int8_plain(x, w, pad)
+        want = acc.to(torch.float32).mul_(scale).permute(0, 4, 1, 2, 3).to(dt)
+        want = (want if bias is None else want + bias.view(-1, 1, 1, 1)).permute(0, 2, 3, 4, 1)
+        for got in (conv3d_int8(x, w, pad, scale, bias, dt),
+                    conv3d_int8_plain(x, w, pad, scale, bias, dt)):
+            assert got.dtype == dt and got.shape == acc.shape
+            assert torch.equal(got, want), (cin, cout, k, pad, s)
+
+
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("dtype", [*OUT_DTYPES, "float64"])
+def test_quantized_conv3d_int8_equals_unfused_formula(dtype, with_bias):
+    """``quantized_conv3d("int8", ...)`` gives the values of the unfused
+    formula bit for bit: int32 sums of the codes, ``.to(float32).mul_(s_x
+    s_w)``, ``.to(dt)``, ``+ bias.to(dt)``; float64, which the kernel does
+    not write, asks it for float32 and finishes in PyTorch."""
+    from timed_design_tpu_torch.models.quantize import (
+        quantize_activation, quantize_weight, quantized_conv3d)
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8_plain
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 7, 7, 7)).astype(np.float32)).to(dt)
+    w = torch.from_numpy(rng.standard_normal((6, 5, 3, 3, 3)).astype(np.float32)).to(dt)
+    b = torch.from_numpy(rng.standard_normal(6).astype(np.float32)).to(dt) if with_bias else None
+    for padding in (0, 1):
+        wq, s_w = quantize_weight(w)
+        xq, s_x = quantize_activation(x)
+        acc = conv3d_int8_plain(xq.to(torch.int8).permute(0, 2, 3, 4, 1),
+                                wq.to(torch.int8).permute(0, 2, 3, 4, 1), padding)
+        want = acc.to(torch.float32).mul_(s_x * s_w).permute(0, 4, 1, 2, 3).to(dt)
+        want = want if b is None else want + b.to(dt).view(-1, 1, 1, 1)
+        got = quantized_conv3d("int8", x, w, b, padding)
+        assert got.dtype == dt and got.shape == want.shape
+        assert torch.equal(got, want), padding
+
+
+def test_conv3d_int8_refuses_an_epilogue_it_does_not_write():
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+
+    x, w = torch.zeros((1, 5, 5, 5, 4), dtype=torch.int8), torch.zeros((3, 3, 3, 3, 4),
+                                                                        dtype=torch.int8)
+    s = torch.ones(3)
+    with pytest.raises(ValueError, match="scale must be"):
+        conv3d_int8(x, w, 1, torch.ones(4))
+    with pytest.raises(ValueError, match="scale must be"):
+        conv3d_int8(x, w, 1, torch.ones(3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="scale must be"):
+        conv3d_int8(x, w, 1, torch.ones(1, 3))
+    with pytest.raises(ValueError, match="bias must be"):
+        conv3d_int8(x, w, 1, s, torch.zeros(3), torch.bfloat16)
+    with pytest.raises(ValueError, match="bias must be"):
+        conv3d_int8(x, w, 1, s, torch.zeros(4, dtype=torch.bfloat16), torch.bfloat16)
+    with pytest.raises(ValueError, match="out_dtype must be"):
+        conv3d_int8(x, w, 1, s, out_dtype=torch.float64)
+    with pytest.raises(ValueError, match="out_dtype must be"):
+        conv3d_int8(x, w, 1, s, out_dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs a scale"):
+        conv3d_int8(x, w, 1, bias=torch.zeros(3))
+    with pytest.raises(ValueError, match="needs a scale"):
+        conv3d_int8(x, w, 1, out_dtype=torch.bfloat16)
+    assert conv3d_int8(x, w, 1, out_dtype=torch.int32).dtype == torch.int32
+    assert conv3d_int8(x, w, 1, s).dtype == torch.float32
+    assert conv3d_int8(x, w, 1, s, torch.zeros(3, dtype=torch.float16),
+                       torch.float16).dtype == torch.float16
+
+
+@pytest.mark.parametrize("cin", [5, 12, 42, 78, 16])
+def test_channel_padding_keeps_the_sums(cin):
+    """The zero channels the wrapper appends for the kernel's copies (C not
+    a multiple of 4: to a multiple of 8) leave every sum as it was."""
+    from timed_design_tpu_torch.ops.conv3d_int8 import (
+        conv3d_int8_plain, pad_channels, padded_channels)
+
+    x, w = _codes((2, 6, 5, 7, cin), cin), _codes((7, 3, 3, 3, cin), 200 + cin)
+    xp, wp = pad_channels(torch.from_numpy(x), torch.from_numpy(w))
+    cp = padded_channels(cin)
+    assert cp == {5: 8, 12: 12, 42: 48, 78: 80, 16: 16}[cin]
+    assert xp.shape[-1] == wp.shape[-1] == cp and xp.dtype == wp.dtype == torch.int8
+    assert not xp[..., cin:].any() and not wp[..., cin:].any()
+    for pad in (0, 1):
+        want = _numpy_conv_int64(x, w, pad)
+        np.testing.assert_array_equal(conv3d_int8_plain(xp, wp, pad).numpy(), want)
+
+
+def test_output_channel_tiles_fit_the_zoo():
+    """Each of the zoo's widths gets an instantiated tile width: 20 -> 24,
+    the 338-class head two blocks of 176, none wider than 256 channels."""
+    from timed_design_tpu_torch.ops.conv3d_int8 import TILE_WIDTHS, tile_n
+
+    got = {n: tile_n(n) for n in (12, 16, 20, 24, 32, 36, 42, 48, 64, 128, 256, 338)}
+    assert got[20] == (24, 1) and got[338] == (176, 2) and got[256] == (128, 2)
+    assert got[16] == (16, 1) and got[128] == (128, 1) and got[12] == (16, 1)
+    for n, (width, blocks) in got.items():
+        assert width in TILE_WIDTHS and width * (blocks - 1) < n <= width * blocks, n
+        assert blocks <= 2
+
+
 # ------------------------------------------------- one quantized convolution
 
 def _jax_quantized_conv(mode, x, w, b, padding, dtype):
@@ -423,3 +555,39 @@ def test_conv3d_int8_kernel_equals_plain(shape, cuda_device):
     torch.cuda.synchronize()
     assert conv3d_int8.launches == launches + 1
     assert torch.equal(got.cpu(), conv3d_int8_plain(torch.from_numpy(x), torch.from_numpy(w), pad))
+
+
+@functools.lru_cache(maxsize=2)
+def _zoo_case(shape):
+    """Two frames of random codes at ``shape`` and their plain int32 sums."""
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8_plain
+
+    cin, cout, k, pad, s = shape
+    x = torch.from_numpy(_codes((2, s, s, s, cin), cin))
+    w = torch.from_numpy(_codes((cout, k, k, k, cin), cout))
+    return x, w, conv3d_int8_plain(x, w, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ZOO_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv3d_int8_fused_kernel_equals_plain(shape, dtype, with_bias, cuda_device):
+    """The fused kernel (sums, rescale, cast, bias in one launch) equals the
+    fused plain version on a CPU copy bit for bit, at every convolution
+    shape of the zoo; one launch each."""
+    cin, cout, k, pad, s = shape
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+
+    dt = getattr(torch, dtype)
+    x, w, acc = _zoo_case(shape)
+    scale, bias = _epilogue_inputs(cout, dt, cout + k)
+    bias = bias if with_bias else None
+    launches = conv3d_int8.launches
+    got = conv3d_int8(x.to(cuda_device), w.to(cuda_device), pad, scale.to(cuda_device),
+                      None if bias is None else bias.to(cuda_device), dt)
+    torch.cuda.synchronize()
+    assert conv3d_int8.launches == launches + 1
+    want = acc.to(torch.float32).mul_(scale).to(dt)
+    want = want if bias is None else want + bias
+    assert got.dtype == dt and torch.equal(got.cpu(), want)

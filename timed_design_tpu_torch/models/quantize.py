@@ -12,7 +12,8 @@ Modes:
                      the convolution (every frame of the padded batch); the
                      integer convolution with int32 sums (``ops/conv3d_int8``:
                      the hand-written kernel on the card, its plain version on
-                     the CPU), rescaled in float32.
+                     the CPU), rescaled in float32, cast and biased in the
+                     same call (float64 finishes in PyTorch).
   * ``"int8-fake"``  the same codes, multiplied back by their scales and
                      convolved in floating point.
   * ``"w8"``         the weights' codes only, multiplied back; activations
@@ -31,7 +32,7 @@ import typing as t
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv3d_int8 import conv3d_int8
+from ..ops.conv3d_int8 import OUT_DTYPES, conv3d_int8
 
 MODES = ("int8", "int8-fake", "w8")
 
@@ -116,9 +117,12 @@ def quantized_conv3d(
                            padding=padding)
         elif mode == "int8":
             # channels-last codes: x is an NCDHW view of NDHWC memory in the zoo
-            acc = conv3d_int8(xq.to(torch.int8).permute(0, 2, 3, 4, 1),
-                              wq.to(torch.int8).permute(0, 2, 3, 4, 1), padding)
-            out = acc.to(torch.float32).mul_(s_x * s_w).permute(0, 4, 1, 2, 3).to(dt)
+            codes = (xq.to(torch.int8).permute(0, 2, 3, 4, 1),
+                     wq.to(torch.int8).permute(0, 2, 3, 4, 1), padding, s_x * s_w)
+            if dt in OUT_DTYPES:  # rescale, cast and bias in the kernel's epilogue
+                b = None if bias is None else bias.to(dt)
+                return conv3d_int8(*codes, b, dt).permute(0, 4, 1, 2, 3)
+            out = conv3d_int8(*codes, out_dtype=torch.float32).permute(0, 4, 1, 2, 3).to(dt)
         else:
             raise ValueError(f"quantize mode must be one of {MODES}, got {mode!r}")
     return out if bias is None else out + bias.to(dt).view(-1, 1, 1, 1)
