@@ -30,6 +30,13 @@ an output is wrong:
     batch 512, bfloat16 and float32, over 1ubq, the multichain and a
     two-state NMR file, in-process and once as a subprocess; TIMED_rotamer
     on 1ubq in float32 held to the CPU. It reaches no kernel of the port;
+  - the analysis stack: ``td-predict`` of TIMED_rotamer as a CLI subprocess
+    whose ``_rot.csv`` the native ``%.18e`` formatter writes (byte-equal to
+    ``np.savetxt``), ``td-analyse-rotamers`` on its outputs with a fake
+    Scwrl4 on the card and on the CPU (the same results), the metric passes
+    alone at 200,000 x 338 on both, the packing count of the multichain on
+    both, and ``run_temperature_sweep`` (one batched sampling launch per
+    temperature);
   - training (``train/``) on the same 988 frames, shuffled, batch 256: one
     float32 train step of each family at registry widths on the card and
     the CPU against a float64 step; registry TIMED trained by ``fit`` in
@@ -1032,6 +1039,327 @@ def check_td_predict() -> dict:
     log(f"td-predict: phase passed in {phase_s:.1f} s; launches of the sampling kernel: 0")
     return {"launches": launches, "per_model": per_model, "cli_wall_s": cli_wall,
             "f32_card_vs_cpu_max_abs_dp": err, "phase_s": phase_s}
+
+
+# td-predict as a subprocess of its CLI's main, run once per entry of the
+# JSON argument ({tag: argv}); prints each run's phase times and how many
+# blocks the native %.18e writer wrote
+PREDICT_E18_CLI = """
+import json, sys
+from timed_design_tpu_torch.cli.predict import main
+from timed_design_tpu_torch.io.fast_fmt import write_e18_csv
+runs = {}
+for tag, argv in json.loads(sys.argv[1]).items():
+    calls = write_e18_csv.calls
+    result = main(argv)
+    runs[tag] = {"timings": result.timings, "e18_calls": write_e18_csv.calls - calls}
+print("RUNS " + json.dumps(runs))
+"""
+
+# td-analyse-rotamers as a subprocess of its CLI module, printing at the end
+# the card's peak memory in that process (0 when it never touched the card);
+# the first argument "block" makes matplotlib unimportable there
+ANALYSE_CLI = """
+import runpy, sys
+if sys.argv[1] == "block":
+    sys.modules["matplotlib"] = None
+import torch
+sys.argv = ["td-analyse-rotamers", *sys.argv[2:]]
+runpy.run_module("timed_design_tpu_torch.cli.analyse_rotamers", run_name="__main__")
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+print(f"card peak bytes: {peak}")
+"""
+
+# A stand-in for the licensed SCWRL4 binary with its contract: -i/-o/-s,
+# an output PDB (the input's), the "Total minimal energy" line on stdout
+FAKE_SCWRL = r"""#!/usr/bin/env python3
+import sys
+
+args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+with open(args["-i"]) as f:
+    pdb = f.read()
+seq = open(args["-s"]).read().split()[0].strip()
+if "x" in seq:
+    sys.stderr.write("bad residue\n")
+    sys.exit(1)
+with open(args["-o"], "w") as f:
+    f.write(pdb)
+print("A few lines of preamble")
+print(f"Total minimal energy of the graph = {-17.25 - len(seq) * 0.5}")
+"""
+
+# the metric passes alone: rows x classes of a test set of a few thousand
+# structures
+METRIC_ROWS, METRIC_CLASSES = 200_000, 338
+
+
+def results_agree(got: Path, want: Path) -> None:
+    """Two results_*.txt: every line equal but the AUCs, which agree within
+    1e-12 relative (one-vs-rest is NaN in both where a class is absent)."""
+    g, w = (p.read_text().splitlines() for p in (got, want))
+    assert len(g) == len(w), got.name
+    for a, b in zip(g, w):
+        if a.startswith("Metrics AUC_"):
+            x, y = float(a.split(": ")[1]), float(b.split(": ")[1])
+            assert a.split(": ")[0] == b.split(": ")[0], (a, b)
+            assert a == b or abs(x - y) <= 1e-12 * abs(y), (a, b)  # nan: equal lines
+        else:
+            assert a == b, f"{got.name}: {a[:80]} != {b[:80]}"
+
+
+def card_ms(fn, reps: int = 3):
+    """(median ms, result) of ``reps`` calls after one warm-up, each timed
+    with CUDA events; a call ends by reading its result on the host."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        value = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2], value
+
+
+def cpu_ms(fn):
+    """(ms, result) of one call on the host clock."""
+    t0 = time.perf_counter()
+    value = fn()
+    return (time.perf_counter() - t0) * 1e3, value
+
+
+def metric_passes() -> dict:
+    """OvO and OvR ROC AUC, top-1..5 and the confusion matrices (unweighted
+    and weighted) over METRIC_ROWS x METRIC_CLASSES float16-quantized
+    probability rows with labels, drawn from the script's seed: each on the
+    card (median of 3, CUDA events) and once on the CPU with the same torch
+    functions. The card's values equal the CPU's: the counts exactly, the
+    AUCs within 1e-12 relative, the weighted matrix within 1e-12."""
+    import numpy as np
+    import torch
+
+    import timed_design_tpu_torch.analyse.metrics as M
+    from timed_design_tpu_torch.analyse.rotamer import renormalize_float16_rows
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    N, C = METRIC_ROWS, METRIC_CLASSES
+    y = torch.randint(0, C, (N,), device="cuda", generator=g)
+    p = torch.rand((N, C), device="cuda", generator=g, dtype=torch.float64) ** 24
+    p[torch.arange(N, device="cuda"), y] += 0.3 * torch.rand(N, device="cuda", generator=g,
+                                                               dtype=torch.float64) * p.max(1).values
+    scores = renormalize_float16_rows((p / p.sum(1, keepdims=True)).half())
+    del p
+    pred = scores.argmax(1)
+    weights = (torch.bincount(y, minlength=C).double() / N)[y]
+    fns = {
+        "auc_ovo": lambda s, t, a, w: M.roc_auc_ovo_macro(t, s),
+        "auc_ovr": lambda s, t, a, w: M.roc_auc_ovr_macro(t, s),
+        "top_1_to_5": lambda s, t, a, w: [int(v) for v in torch.bincount(
+            M.true_class_rank(t, s).clamp(max=5), minlength=6).cpu()],
+        "confusion": lambda s, t, a, w: M.confusion(t, a, C, normalize=None),
+        "confusion_weighted": lambda s, t, a, w: M.confusion(t, a, C, sample_weight=w),
+    }
+    card = (scores, y, pred, weights)
+    cpu = tuple(x.cpu() for x in card)
+    out = {}
+    for name, fn in fns.items():
+        ms, got = card_ms(lambda: fn(*card))
+        host, want = cpu_ms(lambda: fn(*cpu))
+        if name.startswith("auc"):
+            assert np.isfinite(got) and abs(got - want) <= 1e-12 * abs(want), (name, got, want)
+        elif name == "confusion_weighted":
+            assert np.allclose(got, want, rtol=1e-12, atol=0), name
+        else:
+            assert np.array_equal(np.asarray(got), np.asarray(want)), name
+        out[name] = {"card_ms": ms, "cpu_ms": host,
+                     "value": got if name.startswith("auc") or name == "top_1_to_5" else None}
+        log(f"analyse metric passes, {N} x {C}: {name} card {ms:.2f} ms (median of 3), cpu "
+            f"{host:.0f} ms ({torch.get_num_threads()} threads); card equals cpu"
+            + (f"; {got}" if name.startswith("auc") or name == "top_1_to_5" else ""))
+    return out
+
+
+def check_analyse() -> dict:
+    """The analysis stack on the card.
+
+    (1) td-predict --voxelize of TIMED_rotamer over the 988 frames (bf16,
+    batch 512) as a subprocess of the CLI, three runs in one process: cold,
+    warm, and TIMED warm; the native %.18e formatter must have written every
+    block of ``_rot.csv`` (2 a run), and the file equals np.savetxt of its
+    rows byte for byte; the warm frames/s of both models. (2)
+    td-analyse-rotamers on those outputs (the SRB map, the structures as the
+    mirror, a fake Scwrl4), on the card and with --device cpu, the two
+    processes side by side: the three
+    results files agree (AUCs within 1e-12 relative, every other line
+    equal), scwrl_scores.csv byte-equal, the card's run used the card, the
+    CPU's did not. (3) the metric passes alone at METRIC_ROWS x
+    METRIC_CLASSES (``metric_passes``). (4) atom_packing_density of the
+    760-residue multichain on the card against the CPU: equal counts. (5)
+    run_temperature_sweep over 1ubq's rotamer rows at the 5 default
+    temperatures, n 100: exactly 5 batched sampling launches, every sample's
+    metrics recomputed from its sequence. (6) td-analyse-rotamers
+    --plot_confusion without matplotlib exits non-zero naming it."""
+    import importlib.util
+    import io
+    import json
+    import os
+    import stat
+    import tempfile
+
+    import numpy as np
+
+    from timed_design_tpu_torch.analyse import DEFAULT_TEMPERATURES, run_temperature_sweep
+    from timed_design_tpu_torch.analyse import atom_packing_density
+    from timed_design_tpu_torch.io import write_prediction_rows
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.sample import sequence_metrics
+    from timed_design_tpu_torch.structure import parse_pdb_string
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_analyse_", dir=ROOT))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    cwd = Path.cwd()
+    try:
+        inputs = work / "in"
+        write_structures(inputs)
+        # (1) td-predict, the native writer
+        runs = {tag: ["--voxelize", "--path_to_dataset", str(inputs), "--path_to_model", model,
+                      "--allow-random-weights", "--batch_size", "512", "--compute_dtype",
+                      "bfloat16", "--device", "cuda", "--path_to_output", str(work / tag),
+                      "--path_to_datasetmap", str(work / tag / "datasetmap.txt"),
+                      "--is_structure_nmr"] + (["--predict_rotamers"] if "rot" in tag else [])
+                for tag, model in (("rot_cold", "TIMED_rotamer"), ("rot", "TIMED_rotamer"),
+                                   ("timed", "TIMED"))}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", PREDICT_E18_CLI, json.dumps(runs)],
+                              cwd=work, capture_output=True, text=True, timeout=600, env=env)
+        predict_wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        done = json.loads(proc.stdout.rsplit("RUNS ", 1)[1])
+        fps = {}
+        for tag, model in (("rot_cold", "TIMED_rotamer"), ("rot", "TIMED_rotamer"),
+                           ("timed", "TIMED")):
+            n = check_td_predict_outputs(work / tag, model, "rot" in tag, True)
+            fps[tag] = n / done[tag]["timings"]["predict"]
+            assert done[tag]["e18_calls"] == (-(-n // 512) if "rot" in tag else 0), (tag, done[tag])
+        rot_csv = work / "rot" / "TIMED_rotamer_rot.csv"
+        rows = np.loadtxt(rot_csv, delimiter=",", ndmin=2)
+        again = io.BytesIO()
+        np.savetxt(again, rows, delimiter=",")
+        assert rot_csv.read_bytes() == again.getvalue(), "_rot.csv differs from np.savetxt's"
+        log(f"analyse: td-predict CLI subprocess (bf16, batch 512, {n} frames) in "
+            f"{predict_wall:.2f} s; _rot.csv written by the native formatter "
+            f"({done['rot']['e18_calls']} blocks), byte-equal to np.savetxt of its rows; warm "
+            f"predict phase TIMED_rotamer {fps['rot']:.0f} frames/s (cold {fps['rot_cold']:.0f}), "
+            f"TIMED {fps['timed']:.0f} frames/s; {gpu_name_and_power()}")
+
+        # (2) td-analyse-rotamers, card and CPU, with a fake Scwrl4
+        exe = work / "Scwrl4"
+        exe.write_text(FAKE_SCWRL)
+        exe.chmod(exe.stat().st_mode | stat.S_IEXEC)
+        argv = ["--path_to_pred_matrix", str(rot_csv), "--path_to_datasetmap",
+                str(work / "rot" / "TIMED_rotamer.txt"), "--path_to_pdb", str(inputs),
+                "--path_to_scwrl", str(exe)]
+        analysed = {dev: work / f"analyse_{dev}" for dev in ("cuda", "cpu")}
+
+        def analyse_run(dev):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", ANALYSE_CLI, "run", *argv, "--path_to_output",
+                 str(analysed[dev]), "--device", dev],
+                cwd=work, capture_output=True, text=True, timeout=600, env=env)
+            return proc, time.perf_counter() - t0
+
+        # the two runs are host-bound and independent: side by side
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            runs_by_dev = dict(zip(analysed, pool.map(analyse_run, analysed)))
+        walls = {dev: wall for dev, (_, wall) in runs_by_dev.items()}
+        peaks, summary = {}, {}
+        for dev, (proc, _) in runs_by_dev.items():
+            assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+            assert "[scwrl-pred] top-1" in proc.stdout and "[scwrl-real] top-1" in proc.stdout, (
+                proc.stdout[-3000:])
+            peaks[dev] = int(proc.stdout.rsplit("card peak bytes: ", 1)[1].split()[0])
+            summary[dev] = "; ".join(l for l in proc.stdout.splitlines() if l.startswith("["))
+        assert peaks["cuda"] > 0 and peaks["cpu"] == 0, peaks
+        for name in ("results_wt.txt", "results_scwrl_pred.txt", "results_scwrl_real.txt"):
+            results_agree(analysed["cuda"] / name, analysed["cpu"] / name)
+        assert ((analysed["cuda"] / "scwrl_scores.csv").read_bytes()
+                == (analysed["cpu"] / "scwrl_scores.csv").read_bytes())
+        n_scored = len((analysed["cuda"] / "scwrl_scores.csv").read_text().splitlines()) - 1
+        log(f"analyse: td-analyse-rotamers with a fake Scwrl4, {n_scored} chains packed, the "
+            f"two runs side by side: card {walls['cuda']:.2f} s (peak "
+            f"{peaks['cuda'] / 2**20:.1f} MiB on the card), cpu {walls['cpu']:.2f} s; "
+            f"results_wt/scwrl_pred/scwrl_real agree, scwrl_scores.csv "
+            f"byte-equal; card: {summary['cuda']}")
+
+        # (3) the metric passes at a test set's size
+        passes = metric_passes()
+
+        # (4) packing density of the multichain
+        text = gzip.decompress(UBQ.read_bytes()).decode()
+        xyz = parse_pdb_string(multichain_pdb(text), name="mult")[0].coords
+        pack_ms, dens_card = card_ms(lambda: atom_packing_density(xyz, device="cuda"))
+        pack_cpu_ms, dens_cpu = cpu_ms(lambda: atom_packing_density(xyz, device="cpu"))
+        assert np.array_equal(dens_card, dens_cpu) and dens_card.min() >= 0
+        log(f"analyse: atom_packing_density of the multichain ({len(xyz)} atoms): card "
+            f"{pack_ms:.2f} ms, cpu {pack_cpu_ms:.0f} ms, counts equal (mean "
+            f"{dens_card.mean():.2f})")
+
+        # (5) the temperature sweep: one batched launch per temperature
+        names = [l.split(",") for l in (work / "rot" / "datasetmap.txt").read_text().splitlines()]
+        ubq_rows = [i for i, e in enumerate(names) if e[0] == "1ubq"]
+        sweep_dir = work / "sweep"
+        sweep_dir.mkdir()
+        with open(sweep_dir / "ubq_rot.csv", "wb") as f:
+            write_prediction_rows(f, rows[ubq_rows], float16=False)
+        (sweep_dir / "ubq.txt").write_text(
+            f"ignore_uncommon False\ninclude_pdbs\n##########\n1ubqA {len(ubq_rows)}\n")
+        os.chdir(sweep_dir)
+        sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+        t0 = time.perf_counter()
+        paths = run_temperature_sweep(sweep_dir / "ubq_rot.csv", sweep_dir / "ubq.txt",
+                                      sample_n=100, device="cuda")
+        sweep_wall = time.perf_counter() - t0
+        launches = sample_inverse_cdf_batched.launches
+        assert sample_inverse_cdf.launches == 0 and launches == len(DEFAULT_TEMPERATURES) == 5
+        worst = 0.0
+        for temp, files in paths.items():
+            assert len(files) == 3
+            samples = json.loads((sweep_dir / files[0]).read_text())["1ubqA"]
+            assert len(samples) == 100
+            for seq, *m in samples:
+                assert len(seq) == 76
+                want = sequence_metrics(seq)
+                worst = max(worst, float(np.max(np.abs(np.subtract(m, want))
+                                                / np.maximum(np.abs(want), 1.0))))
+        assert worst <= 1e-4, f"sampled metrics differ from the sequences' by {worst:.3g}"
+        log(f"analyse: run_temperature_sweep 1ubq, T {DEFAULT_TEMPERATURES}, n 100: "
+            f"{sweep_wall:.2f} s, {launches} batched launches, metrics agree with the "
+            f"sequences to {worst:.2g}")
+        os.chdir(cwd)
+
+        # (6) --plot_confusion where matplotlib is missing
+        present = importlib.util.find_spec("matplotlib") is not None
+        proc = subprocess.run(
+            [sys.executable, "-c", ANALYSE_CLI, "block" if present else "run", *argv,
+             "--path_to_output", str(work / "plots"), "--device", "cuda", "--plot_confusion"],
+            cwd=work, capture_output=True, text=True, timeout=300, env=env)
+        assert proc.returncode != 0 and "matplotlib" in proc.stderr, proc.stderr[-2000:]
+        log(f"analyse: --plot_confusion without matplotlib ({'blocked' if present else 'absent'} "
+            f"here) exits {proc.returncode}: {proc.stderr.strip().splitlines()[-1]}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"analyse: phase passed in {phase_s:.1f} s; launches of the sampling kernel: {launches}")
+    return {"launches": launches, "predict_frames_per_s": fps, "predict_cli_wall_s": predict_wall,
+            "analyse_wall_s": walls, "metric_passes": passes,
+            "packing_density_ms": {"card": pack_ms, "cpu": pack_cpu_ms},
+            "sweep_wall_s": sweep_wall, "phase_s": phase_s}
 
 
 TRAIN_FAMILIES = ("TIMED", "ProDCoNN", "DenseNet", "DenseCPD")
@@ -2197,19 +2525,21 @@ def main() -> int:
     td_sample = check_td_sample()
     families = check_families()
     td_predict = check_td_predict()
+    analyse = check_analyse()
     train = check_train()
     assert conv3d_int8.launches == 0, "an unquantized path launched the int8 kernel"
     quantize = check_quantize()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
-                    "td_predict": td_predict, "train": train, "quantize": quantize}))
+                    "td_predict": td_predict, "analyse": analyse, "train": train,
+                    "quantize": quantize}))
     main_shape = kernel["shapes"][0]
     # TIMED's 64 -> 128 block: the largest of its int8 convolutions
     conv_main = quantize["kernel"]["per_shape"][3]
     # td-predict and training reach no TPU kernel (voxelizer and convs are
-    # plain torch)
+    # plain torch); the analysis reaches the sampler through its sweep
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
                 "families": families["launches"], "td_predict": td_predict["launches"],
-                "train": train["launches"]}
+                "analyse": analyse["launches"], "train": train["launches"]}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",

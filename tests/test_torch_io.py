@@ -135,3 +135,92 @@ def test_fasta_csv_and_datasetmap_writers_byte_equal(tmp_path):
     assert (a / "datasetmap.txt").read_bytes() == (b / "datasetmap.txt").read_bytes()
     with pytest.raises(ValueError, match="per-residue"):
         save_datasetmap(DatasetMap(counts=[("1abcA", 3)]), b / "x.txt")
+
+
+# ------------------------------------------------- the native %.18e writer
+
+_PROBE = [0.0, 1.0, 1 / 3, 0.1, 6e-8, 65504.0, 5.96e-8, float(np.float32(0.7)), 1e-38, 3.4e38]
+
+
+def _e18_rows(case):
+    rng = np.random.default_rng(13)
+    if case == "probe_values":
+        return np.array([_PROBE, _PROBE[::-1]], np.float64), True
+    if case == "float32_rows":
+        p = rng.random((301, 338)).astype(np.float32) ** 3
+        return (p / p.sum(1, keepdims=True)).astype(np.float64), True
+    if case == "subnormals":  # the savetxt path: three-digit exponents
+        p = rng.random((7, 20))
+        p[3, 4] = 5e-324
+        p[5, 0] = 1e-310
+        return p, False
+    if case == "negative":
+        return rng.random((5, 20)) - 0.5, False
+    if case == "non_finite":
+        p = rng.random((4, 20))
+        p[1, 1] = np.inf
+        return p, False
+    raise KeyError(case)
+
+
+@pytest.fixture(scope="module")
+def jax_e18(tmp_path_factory):
+    """The JAX package's native writer, its library built into a directory
+    of this module's own: its loader builds in place in native/, where test
+    workers running at once would race."""
+    import timed_design_tpu.io.fast_fmt as jax_ff
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_ff, "_LIB", tmp_path_factory.mktemp("jax_fmt_csv") / "libfmt_csv.so")
+        mp.setattr(jax_ff, "_lib", None)
+        mp.setattr(jax_ff, "_tried", False)
+        assert jax_ff.native_available()
+        yield jax_ff.write_e18_csv
+
+
+@pytest.mark.parametrize("case", ["probe_values", "float32_rows", "subnormals", "negative",
+                                  "non_finite"])
+def test_native_e18_writer_byte_equal(tmp_path, case, jax_e18):
+    """``write_e18_csv`` writes np.savetxt's bytes and the JAX package's
+    native formatter's, and counts the call, where every cell fits its
+    fixed width; elsewhere it writes nothing and ``write_prediction_rows``
+    falls back to np.savetxt, the same bytes again."""
+    import io
+
+    from timed_design_tpu_torch.io import write_prediction_rows
+    from timed_design_tpu_torch.io.fast_fmt import native_available, write_e18_csv
+
+    rows, native = _e18_rows(case)
+    want = io.BytesIO()
+    np.savetxt(want, rows, delimiter=",")
+    assert native_available()
+    before = write_e18_csv.calls
+    got = io.BytesIO()
+    assert write_e18_csv(got, rows) is native
+    assert write_e18_csv.calls == before + native
+    assert got.getvalue() == (want.getvalue() if native else b"")
+    jax = io.BytesIO()
+    assert jax_e18(jax, rows) is native
+    assert jax.getvalue() == got.getvalue()
+    full = io.BytesIO()
+    write_prediction_rows(full, rows, float16=False)
+    assert full.getvalue() == want.getvalue()
+    assert write_e18_csv.calls == before + 2 * native
+
+
+def test_native_e18_writer_builds_into_the_port_and_probes(monkeypatch):
+    """The library is built from the port's csrc/fmt_csv.cpp into its own
+    _build/, under a hash of the source; a library whose printf misformats
+    the probe row is refused (the writers then use np.savetxt)."""
+    from pathlib import Path
+
+    import timed_design_tpu_torch.io.fast_fmt as ff
+
+    pkg = Path(ff.__file__).resolve().parents[1]
+    assert ff._SRC == pkg / "csrc" / "fmt_csv.cpp"
+    lib = ff.build_host_library(ff._SRC)
+    assert lib.parent == pkg / "_build" and lib.name.startswith("libfmt_csv-")
+    monkeypatch.setattr(ff, "_lib", None)
+    monkeypatch.setattr(ff, "_tried", False)
+    monkeypatch.setattr(ff, "_format", lambda lib, a: b"0")
+    assert not ff.native_available()

@@ -605,16 +605,16 @@ REFUSALS = {
     "no_voxelize": (["--path_to_dataset", "x.pdb"], "--voxelize is required"),
     "quantize": (["--voxelize", "--quantize", "w8"], None),
     "report": (["--voxelize", "--path_to_dataset", "x.pdb", "--report"], "item 6"),
-    "output_analysis": (["--voxelize", "--path_to_dataset", "x.pdb", "--output_analysis"],
-                        "item 6"),
+    "output_analysis": (["--voxelize", "--output_analysis"], None),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_refusals(case, tmp_path, structures, ckpts):
     """What the port does not take exits with a message that names its
-    ROADMAP item; ``--quantize``, ported, runs (``--quantize w8 --device
-    cpu`` on a small checkpoint)."""
+    ROADMAP item; ``--quantize`` and ``--output_analysis``, ported, run
+    (``--quantize w8 --device cpu`` on a small checkpoint; the analysis
+    graphs of ``--output_analysis``, one set per chain)."""
     from timed_design_tpu_torch.cli.predict import main
 
     argv, message = REFUSALS[case]
@@ -623,6 +623,8 @@ def test_refusals(case, tmp_path, structures, ckpts):
                        "--batch_size", str(BATCH), "--path_to_model", ckpts["TIMED"]]
         _run_port(argv, tmp_path)
         assert len(_fasta(tmp_path / "TIMED.fasta")[">AinsA"]) == 12
+        graphs = {"AinsA_probabilities_heatmap.png", "AinsA_mean_var.png", "AinsA_logo.png"}
+        assert (graphs <= {p.name for p in tmp_path.iterdir()}) is (case == "output_analysis")
         return
     with pytest.raises(SystemExit, match=message):
         main(argv + ["--path_to_model", "TIMED", "--device", "cpu"])

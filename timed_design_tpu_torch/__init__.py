@@ -7,15 +7,21 @@ as its own copy, under the same module name. Its entry points run on the
 CUDA device unless the caller asks for the CPU.
 
 Layering (bottom-up), ported so far:
-  constants -> amino-acid tables, the rotamer codec
-  structure -> PDB parsing (native C++ scanner in csrc/pdbscan.cpp)
+  constants -> amino-acid tables, the rotamer codec, BLOSUM62
+  structure -> PDB parsing (native C++ scanner in csrc/pdbscan.cpp),
+             chi angles, rotamer tags, superposition
   voxel   -> codecs, residue frames (host numpy), the voxelizer
   ops     -> the voxelizer's matrix products; the CUDA sampling kernel
              (csrc/sample_inverse_cdf.cu) with its build and its plain version
   models  -> TIMED 3D-CNN zoo, registry, Flax-weight conversion
   engine  -> batched prediction, DesignSession, request coalescing
   sample  -> temperature, Monte-Carlo sampling, sequence metrics
-  cli     -> the HTTP design service (python -m timed_design_tpu_torch.cli.serve)
+  io      -> datasetmaps, decoding, writers (native %.18e formatter in
+             csrc/fmt_csv.cpp), the RCSB fetcher
+  analyse -> recovery and rotamer metrics (on the device), structure
+             analyses, SCWRL4/AlphaFold2/NetSolP adapters, plots, sweeps
+  cli     -> td-serve, td-sample, td-predict, td-analyse-rotamers
+             (python -m timed_design_tpu_torch.cli.<name>)
 """
 
 __version__ = "0.1.0"

@@ -11,14 +11,15 @@ by batch -> every model on each batch -> the JAX package's artifacts:
 ``{model}.fasta``, the SRB map ``{model}.txt``, ``dataset.fasta``,
 ``encoded_labels.csv``, the per-residue ``datasetmap.txt``, with
 ``--is_structure_nmr`` ``{model}_consensus.{fasta,csv,txt}``, and with
-``--ensemble`` the same set as ``ensemble``. No HDF5 file is written or
-read.
+``--ensemble`` the same set as ``ensemble``, and with ``--output_analysis``
+each chain's probability heatmap, mean/variance histograms and sequence
+logo (needs matplotlib). No HDF5 file is written or read.
 
 The flags of ``timed_design_tpu/cli/predict.py`` plus ``--device`` (default
 ``cuda``; without a card it exits with a message, and runs on the CPU only
 with ``--device cpu``). ``--voxelize`` is required. ``--quantize`` runs
-every convolution in a mode of ``models/quantize.py``. ``--report`` and
-``--output_analysis`` are not ported and exit.
+every convolution in a mode of ``models/quantize.py``. ``--report`` is not
+ported and exits.
 """
 from __future__ import annotations
 
@@ -32,8 +33,7 @@ import torch
 from ..utils import PredictConfig
 
 NOT_PORTED = {
-    "report": "ROADMAP Queue 1, item 6 (the report and the plots)",
-    "output_analysis": "ROADMAP Queue 1, item 6 (the report and the plots)",
+    "report": "ROADMAP Queue 1, item 6 (the design report)",
 }
 
 
@@ -59,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Input is PDB file(s), voxelized on the device (required)")
     p.add_argument("--codec", type=str, default="CNOCACB")
     p.add_argument("--output_analysis", action="store_true",
-                   help="Not ported: exits with the ROADMAP item that brings it")
+                   help="Per-chain graphs (probability heatmap, mean/variance "
+                        "histograms, sequence logo); needs matplotlib")
     p.add_argument("--report", action="store_true",
                    help="Not ported: exits with the ROADMAP item that brings it")
     p.add_argument("--compute_dtype", type=str, default="float32",
@@ -107,6 +108,13 @@ def main(argv=None):
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; "
                          "pass --device cpu to predict on the CPU")
+    if args.output_analysis:
+        from ..analyse.plots import pyplot
+
+        try:
+            pyplot("--output_analysis")  # before predicting, not after
+        except ImportError as e:
+            raise SystemExit(str(e)) from e
     out = Path(args.path_to_output)
     out.mkdir(parents=True, exist_ok=True)
     cfg = PredictConfig(
@@ -166,7 +174,30 @@ def main(argv=None):
           f"across {len(result.pdb_to_sequence)} chains.")
     for phase, secs in result.timings.items():
         print(f"  {phase}: {secs:.2f}s")
+    if args.output_analysis:
+        write_analysis_graphs(result.pdb_to_probability, out)
     return result
+
+
+def write_analysis_graphs(pdb_to_probability: dict, out: Path) -> None:
+    """Per chain: its probability heatmap (rotamer probabilities summed to
+    the 20 amino acids first), mean/variance histograms and sequence logo."""
+    import numpy as np
+
+    from ..analyse import create_sequence_logo, plot_mean_var_probs, plot_sequence_heatmap
+    from ..analyse.plots import pyplot
+    from ..constants import compress_rotamer_probs
+
+    plt = pyplot("--output_analysis")
+    for pdb, probs in pdb_to_probability.items():
+        probs = np.asarray(probs)
+        heat = compress_rotamer_probs(probs) if probs.shape[1] == 338 else probs
+        plot_sequence_heatmap(heat, f"{pdb} probabilities", out)
+        plot_mean_var_probs(probs, f"{pdb}", out)
+        fig = create_sequence_logo(probs)
+        fig.savefig(out / f"{pdb}_logo.png")
+        plt.close(fig)  # one live figure per chain otherwise
+    print(f"Analysis graphs written to {out}")
 
 
 if __name__ == "__main__":

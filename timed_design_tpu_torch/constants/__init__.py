@@ -1,4 +1,4 @@
-"""Constant tables the port uses: amino acids and the rotamer codec.
+"""Constant tables the port uses: amino acids, the rotamer codec, BLOSUM62.
 
 Copies of ``timed_design_tpu/constants`` (same names, same values), kept
 here so that the port imports nothing of the JAX package.
@@ -20,15 +20,26 @@ from .amino_acids import (  # noqa: F401
     RESIDUE_CHARGE,
     RESIDUE_EXT_280,
     RESIDUE_MW,
+    SIDE_CHAIN_DIHEDRALS,
     STANDARD_AMINO_ACIDS,
     UNCOMMON_RESIDUE_DICT,
     VDW_RADII,
     WATER_MASS,
 )
+from .blosum import (  # noqa: F401
+    BLOSUM62_ALPHABET,
+    BLOSUM62_MATRIX,
+    blosum62_scores,
+    lookup_blosum62,
+    sequence_similarity,
+)
 from .rotamers import (  # noqa: F401
     N_ROTAMER_CLASSES,
+    REDUCTION_GUIDE,
     ROTAMER_CATEGORIES,
     ROTAMER_TO_AA,
     ROTAMER_TO_AA_ONEHOT,
     compress_rotamer_probs,
+    encode_chi_bins_to_rotamer,
+    get_rotamer_codec,
 )

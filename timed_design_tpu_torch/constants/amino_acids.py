@@ -31,6 +31,33 @@ CHI_COUNTS: dict[str, int] = {
     "SER": 1, "THR": 1, "VAL": 1, "TRP": 2, "TYR": 2,
 }
 
+# Side-chain dihedral atom quadruples (standard chi definitions): chi tagging.
+SIDE_CHAIN_DIHEDRALS: dict[str, list[tuple[str, str, str, str]]] = {
+    "ARG": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD"),
+            ("CB", "CG", "CD", "NE"), ("CG", "CD", "NE", "CZ")],
+    "ASN": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "OD1")],
+    "ASP": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "OD1")],
+    "CYS": [("N", "CA", "CB", "SG")],
+    "GLN": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD"),
+            ("CB", "CG", "CD", "OE1")],
+    "GLU": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD"),
+            ("CB", "CG", "CD", "OE1")],
+    "HIS": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "ND1")],
+    "ILE": [("N", "CA", "CB", "CG1"), ("CA", "CB", "CG1", "CD1")],
+    "LEU": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD1")],
+    "LYS": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD"),
+            ("CB", "CG", "CD", "CE"), ("CG", "CD", "CE", "NZ")],
+    "MET": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "SD"),
+            ("CB", "CG", "SD", "CE")],
+    "PHE": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD1")],
+    "PRO": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD")],
+    "SER": [("N", "CA", "CB", "OG")],
+    "THR": [("N", "CA", "CB", "OG1")],
+    "TRP": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD1")],
+    "TYR": [("N", "CA", "CB", "CG"), ("CA", "CB", "CG", "CD1")],
+    "VAL": [("N", "CA", "CB", "CG1")],
+}
+
 # Zimmerman polarity; < 20 is non-polar (the P property channel).
 POLARITY_ZIMMERMAN: dict[str, float] = {
     "A": 0.00, "R": 52.00, "N": 3.38, "D": 49.70, "C": 1.48,

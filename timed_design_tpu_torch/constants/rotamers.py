@@ -1,6 +1,7 @@
 """The 338-class rotamer codec: the port's copy of ``ROTAMER_CATEGORIES``,
-``ROTAMER_TO_AA``, ``ROTAMER_TO_AA_ONEHOT`` and ``compress_rotamer_probs``
-from ``timed_design_tpu/constants/rotamers.py``.
+``ROTAMER_TO_AA``, ``ROTAMER_TO_AA_ONEHOT``, ``REDUCTION_GUIDE``,
+``compress_rotamer_probs``, ``get_rotamer_codec`` and
+``encode_chi_bins_to_rotamer`` from ``timed_design_tpu/constants/rotamers.py``.
 
 Per amino acid in AA1 order, one class for every chi-bin combination
 ``product([1, 2, 3], repeat=n_chi)`` (e.g. ``LYS_1232``), and a single
@@ -26,6 +27,8 @@ ROTAMER_TO_AA = np.array(
     np.int32,
 )
 assert len(ROTAMER_CATEGORIES) == ROTAMER_TO_AA.shape[0] == N_ROTAMER_CLASSES
+# where each amino acid's block of rotamer classes starts
+REDUCTION_GUIDE = np.searchsorted(ROTAMER_TO_AA, np.arange(len(AA1))).astype(np.int32)
 
 # (338, 20) one-hot matrix: column j collects every rotamer of amino acid j
 ROTAMER_TO_AA_ONEHOT = np.zeros((N_ROTAMER_CLASSES, len(AA1)), dtype=np.float32)
@@ -36,3 +39,28 @@ def compress_rotamer_probs(prediction_matrix: np.ndarray) -> np.ndarray:
     """(N, 338) rotamer probabilities -> (N, 20) amino-acid probabilities:
     each amino acid's rotamers summed, as one matrix product."""
     return prediction_matrix @ ROTAMER_TO_AA_ONEHOT.astype(prediction_matrix.dtype)
+
+
+def get_rotamer_codec(return_reduction_guide: bool = False):
+    """``(rot_to_20res, flat_categories[, reduction_guide])``: rotamer class
+    -> its (20,) one-hot row, the class names, and each amino acid's first
+    class."""
+    rot_to_20res = {k: ROTAMER_TO_AA_ONEHOT[k] for k in range(N_ROTAMER_CLASSES)}
+    if return_reduction_guide:
+        return rot_to_20res, list(ROTAMER_CATEGORIES), list(REDUCTION_GUIDE)
+    return rot_to_20res, list(ROTAMER_CATEGORIES)
+
+
+def encode_chi_bins_to_rotamer(aa_index: int, chi_bins: tuple[int, ...]) -> int | None:
+    """(amino acid, chi bins 1..3 each) -> its rotamer class, or None when
+    the bins do not fit the residue: the block's start plus the bins read
+    as a base-3 number."""
+    n_chi = CHI_COUNTS[AA3[aa_index]]
+    if n_chi == 0:
+        return int(REDUCTION_GUIDE[aa_index]) if len(chi_bins) == 0 else None
+    if len(chi_bins) != n_chi or any(b not in (1, 2, 3) for b in chi_bins):
+        return None
+    offset = 0
+    for b in chi_bins:
+        offset = offset * 3 + (b - 1)
+    return int(REDUCTION_GUIDE[aa_index]) + offset

@@ -1,7 +1,9 @@
-"""The port's io: datasetmaps, prediction decoding and the writers of
-``td-predict`` and ``td-sample``. HDF5-free: nothing here imports h5py (the
-card's machine has none), so ``td-predict`` takes its frames from the
-voxelizer (``voxel/dataset.py``), never from an HDF5 file."""
+"""The port's io: datasetmaps, prediction decoding, the writers of
+``td-predict`` and ``td-sample`` (with the native ``%.18e`` formatter), and
+the RCSB fetcher of ``td-analyse-rotamers --allow-fetch`` (``fetch.py``).
+HDF5-free: nothing here imports h5py (the card's machine has none), so
+``td-predict`` takes its frames from the voxelizer (``voxel/dataset.py``),
+never from an HDF5 file."""
 from .datasetmap import (  # noqa: F401
     SRB_HEADER,
     DatasetMap,
@@ -12,6 +14,7 @@ from .datasetmap import (  # noqa: F401
     split_dataset_map,
 )
 from .decode import DecodedPredictions, consensus_running_average, extract_sequences  # noqa: F401
+from .fast_fmt import native_available, write_e18_csv  # noqa: F401
 from .writers import (  # noqa: F401
     load_prediction_matrix,
     save_consensus_probs,

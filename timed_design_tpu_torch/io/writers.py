@@ -3,8 +3,9 @@ package's: the port's copy of what they use of
 ``timed_design_tpu/io/writers.py``.
 
 The float16 CSV is a gather from a byte table of every float16 value's
-``%.18e`` text; full-precision rows go through ``np.savetxt`` (the JAX
-package's native formatter writes the same bytes faster).
+``%.18e`` text; full-precision rows go through the native formatter
+(``fast_fmt.py``, ``csrc/fmt_csv.cpp``) where it takes them, else
+``np.savetxt``: the same bytes either way.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from pathlib import Path
 import numpy as np
 
 from .datasetmap import SRB_HEADER
+from .fast_fmt import write_e18_csv
 
 
 def save_dict_to_fasta(
@@ -76,8 +78,11 @@ def write_float16_csv(f, data: np.ndarray, rows_per_chunk: int | None = None) ->
 
 def write_prediction_rows(f, rows: np.ndarray, float16: bool) -> None:
     """One probability block to an open BINARY CSV file: float16 through the
-    byte table where it can, else (and at full precision) ``np.savetxt``."""
+    byte table, full precision through the native formatter, where each
+    takes the rows; else ``np.savetxt``."""
     if float16 and write_float16_csv(f, rows):
+        return
+    if not float16 and write_e18_csv(f, rows):
         return
     data = np.asarray(rows)
     if float16:

@@ -1,4 +1,23 @@
-"""Structure layer: PDB parsing and residue property maps (copies of the
-parts of ``timed_design_tpu/structure`` that the port uses)."""
-from .pdb import Chain, Residue, Structure, load_pdb, parse_pdb_string  # noqa: F401
+"""Structure layer: PDB parsing, geometry (chi angles, rotamer tags,
+superposition) and residue property maps (copies of the parts of
+``timed_design_tpu/structure`` that the port uses)."""
+from .pdb import (  # noqa: F401
+    BACKBONE_ATOMS,
+    Chain,
+    Residue,
+    Structure,
+    load_pdb,
+    parse_pdb_string,
+    residue_labels,
+)
+from .geometry import (  # noqa: F401
+    ca_rmsd,
+    chi_bin,
+    dihedral,
+    encode_structure_rotamers,
+    gdt,
+    kabsch,
+    superpose,
+    tag_chi_angles,
+)
 from .properties import convert_seq_to_property  # noqa: F401

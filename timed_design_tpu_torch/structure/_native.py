@@ -9,31 +9,19 @@ uses its Python scanner, which gives the same arrays.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import subprocess
 import threading
-from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
+from ..utils.native import BUILD_DIR as _BUILD_DIR
+from ..utils.native import PKG as _PKG
+from ..utils.native import build_host_library
+
 _SRC = _PKG / "csrc" / "pdbscan.cpp"
-_BUILD_DIR = _PKG / "_build"
 _lock = threading.Lock()
 _lib = None
 _tried = False
-
-
-def _compile() -> Path:
-    lib = _BUILD_DIR / f"libpdbscan-{hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]}.so"
-    if not lib.exists():
-        _BUILD_DIR.mkdir(exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)],
-                       check=True, capture_output=True)
-        os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
-    return lib
 
 
 def _load():
@@ -43,7 +31,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            lib = ctypes.CDLL(str(_compile()))
+            lib = ctypes.CDLL(str(build_host_library(_SRC)))
             lib.pdb_scan.restype = ctypes.c_long
             lib.pdb_scan.argtypes = [
                 ctypes.c_char_p, ctypes.c_long, ctypes.c_long,

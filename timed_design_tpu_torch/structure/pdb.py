@@ -1,14 +1,16 @@
 """PDB parsing into a struct-of-arrays structure.
 
-The port's copy of ``Structure``, ``load_pdb`` and ``parse_pdb_string``
-from ``timed_design_tpu/structure/pdb.py``, with both of its scanners: the
-native C++ one (``csrc/pdbscan.cpp`` via ``_native.py``) when a toolchain is
-available, else the Python one; both give the same field arrays. A
+The port's copy of ``Structure``, ``load_pdb``, ``parse_pdb_string`` and
+``residue_labels`` from ``timed_design_tpu/structure/pdb.py``, with both of
+its scanners: the native C++ one (``csrc/pdbscan.cpp`` via ``_native.py``)
+when a toolchain is available, else the Python one; both give the same
+field arrays. A
 ``Structure`` is one model (state) as flat NumPy arrays (coords, elements,
 atom names, residue indices) with a chain/residue index on top.
 
 Supports ATOM/HETATM records, multiple MODELs, chains, altloc filtering,
-insertion codes, gzipped files and uncommon-residue remapping.
+insertion codes, gzipped files and uncommon-residue remapping, and writes
+PDB text back (``Structure.to_pdb``).
 """
 from __future__ import annotations
 
@@ -57,6 +59,13 @@ class Chain:
     chain_id: str
     residues: list[Residue]
 
+    def sequence1(self) -> str:
+        from ..constants import AA3_TO_AA1
+
+        return "".join(
+            AA3_TO_AA1.get(r.res_name, "X") for r in self.residues if r.is_standard_aa
+        )
+
 
 @dataclasses.dataclass
 class Structure:
@@ -78,6 +87,41 @@ class Structure:
     def residues(self) -> list[Residue]:
         return [r for c in self.chains for r in c.residues]
 
+    @property
+    def n_residues(self) -> int:
+        return sum(len(c.residues) for c in self.chains)
+
+    def sequence1(self) -> str:
+        return "".join(c.sequence1() for c in self.chains)
+
+    def select_chain(self, chain_id: str) -> "Structure":
+        """One chain as a Structure of its own: the flat arrays sliced to
+        its standard residues, ``res_index`` renumbered from 0."""
+        target = next(
+            (c for c in self.chains if c.chain_id == chain_id), None
+        )
+        if target is None:
+            raise KeyError(f"no chain {chain_id!r} in {self.name}")
+        # the std indices recorded at parse time hold when a chain's records
+        # are not contiguous in the file
+        idxs = np.array(
+            [r.std_index for r in target.residues
+             if r.is_standard_aa and r.std_index is not None],
+            np.int64,
+        )
+        mask = np.isin(self.res_index, idxs)
+        remap = np.full(int(self.res_index.max(initial=0)) + 1, -1, np.int64)
+        remap[idxs] = np.arange(len(idxs))
+        return Structure(
+            name=self.name,
+            chains=[target],
+            coords=self.coords[mask],
+            elements=self.elements[mask],
+            atom_names=self.atom_names[mask],
+            res_index=remap[self.res_index[mask]].astype(np.int32),
+            bfactors=self.bfactors[mask],
+        )
+
     def backbone_arrays(self) -> dict[str, np.ndarray]:
         """(R, 3) coordinate array per backbone atom name, NaN where missing,
         one row per standard residue in file order."""
@@ -89,6 +133,30 @@ class Structure:
                 if xyz is not None:
                     out[name][i] = xyz
         return out
+
+    def to_pdb(self) -> str:
+        """PDB text of the structure (what the SCWRL adapter hands the
+        binary): ATOM/HETATM records, a TER per chain, END."""
+        lines = []
+        serial = 1
+        for chain in self.chains:
+            for res in chain.residues:
+                record = "ATOM" if res.is_standard_aa else "HETATM"
+                for an, xyz, el, bf in zip(
+                    res.atom_names, res.coords, res.elements, res.bfactors
+                ):
+                    name_field = f" {an:<3s}" if len(an) < 4 else an
+                    lines.append(
+                        f"{record:<6s}{serial:>5d} {name_field:<4s} {res.res_name:<3s} "
+                        f"{chain.chain_id:1s}{res.res_seq:>4d}{res.icode:1s}   "
+                        f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}{1.0:6.2f}{bf:6.2f}"
+                        f"          {el:>2s}  "
+                    )
+                    serial += 1
+            lines.append(f"TER   {serial:>5d}      {chain.residues[-1].res_name if chain.residues else '':<3s} {chain.chain_id:1s}")
+            serial += 1
+        lines.append("END")
+        return "\n".join(lines) + "\n"
 
 
 def _scan_python(text: str) -> dict[str, np.ndarray]:
@@ -319,3 +387,13 @@ def load_pdb(
         text, name=name, all_states=all_states, keep_hetatms=keep_hetatms
     )
     return structures if all_states else structures[0]
+
+
+def residue_labels(structure: Structure) -> list[tuple[str, str, str]]:
+    """[(chain_id, residue_id, three-letter label)] for standard residues,
+    in file order."""
+    return [
+        (r.chain_id, r.id, r.res_name)
+        for r in structure.residues
+        if r.is_standard_aa
+    ]
