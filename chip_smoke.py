@@ -53,7 +53,15 @@ an output is wrong:
     DesignSession (float32 against the CPU, bfloat16); ``td-predict
     --voxelize --quantize int8`` as a subprocess and in-process (frames/s
     per mode); ``td-serve --quantize int8`` with samples, which launches
-    both kernels; TIMED's BatchNorm folding against the unfolded forward.
+    both kernels; TIMED's BatchNorm folding against the unfolded forward;
+  - property-constrained design: the sampling kernel past C = 341 (single
+    and batched, up to the largest C the card's shared memory takes, held to
+    the plain version and timed); 1ubq and the multichain rewritten to a
+    zeroed and a seeded charge map and designed by TIMED_Charge at registry
+    widths with 100 samples each (one launch a design), TIMED_Polar once;
+    the scatter voxelizer against the matmul one and the CPU; the design
+    report where matplotlib is installed, else the refusals of
+    ``td-report``, ``td-predict --report`` and ``/report``.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -79,10 +87,11 @@ UBQ = ROOT / "tests" / "testing_files" / "1ubq.pdb1.gz"
 # (76-residue and 760-residue designs with a 338-class head, 100 samples).
 SHAPES = [(76, 338, 100), (760, 338, 100), (76, 338, 1000), (1024, 20, 256), (4096, 338, 64)]
 SEED = 20261016
-# The single entry's recorded device time per call at (76, 338, 100) and
-# (4096, 338, 64) before the batched entry shared its kernel, the highest of
-# four runs (PERF.md, section 6): the single entry is printed against it.
-RECORDED_US = {(76, 338, 100): 8.32, (4096, 338, 64): 13.69}
+# The single entry's recorded device time per call (PERF.md, section 6): at
+# (76, 338, 100) the last run before its tile's rows became a launch
+# parameter, at (4096, 338, 64) the highest of four runs before the batched
+# entry shared its kernel. The single entry must stay within 10% of each.
+RECORDED_US = {(76, 338, 100): 8.19, (4096, 338, 64): 13.69}
 FAMILIES = ("ProDCoNN", "DenseNet", "DenseCPD")
 
 
@@ -343,6 +352,7 @@ def check_batched_kernel() -> dict:
         N_COUNTED,
         _host_offsets,
         _launch_batched,
+        _tile_rows,
         philox_uniforms_batched,
         sample_codes_plain_batched,
         sample_inverse_cdf,
@@ -385,7 +395,8 @@ def check_batched_kernel() -> dict:
     smap = class_map(C).to(dev)
     dev_offsets = torch.from_numpy(_host_offsets(offsets, total).astype(np.int32)).to(dev)
     host_ms = time_ms(lambda: sample_inverse_cdf_batched(probs, offsets, n, SEED, smap))
-    ms = graph_ms(lambda: _launch_batched(probs, dev_offsets, n, SEED, smap))
+    rows = _tile_rows(C, torch.cuda.current_device())
+    ms = graph_ms(lambda: _launch_batched(probs, dev_offsets, n, SEED, smap, rows))
     u = torch.from_numpy(philox_uniforms_batched(SEED, n, offsets)).to(dev)
     cdf, ut = torch.cumsum(probs, -1), u.T.contiguous()
     library_ms = graph_ms(lambda: torch.searchsorted(cdf, ut, right=True))
@@ -2504,6 +2515,376 @@ def check_quantize() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# property-constrained design, the scatter voxelizer, the design report, and
+# the sampling kernel past C = 341
+
+LARGE_C = (512, 1024, 4096)  # and the kernel's limit, read from the card
+LARGE_C_BATCH = [76, 129, 1, 33]  # the batched entry's structures at large C
+
+
+def large_class_map(C: int):
+    """A class map at C classes: codes 0..22, three of them not counted."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy((np.random.default_rng(C).permutation(C) % 23).astype(np.uint8))
+
+
+def check_large_classes() -> dict:
+    """The sampling kernel past the 341 classes of a 48 KB tile: single and
+    batched entries at C = 512, 1024, 4096 and the largest C the wrapper
+    takes on this card, with a class map and without, codes and counts held
+    to the plain version on a CPU copy; each timed as the check shapes are
+    (with the map: host-inclusive, device time from a CUDA graph, bound,
+    torch.searchsorted, the plain version on the card). One class past the
+    limit raises in both entries."""
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.ops.sample import (
+        N_COUNTED,
+        _host_offsets,
+        _launch_batched,
+        _tile_rows,
+        max_classes,
+        philox_uniforms,
+        philox_uniforms_batched,
+        sample_codes_plain,
+        sample_codes_plain_batched,
+        sample_inverse_cdf,
+        sample_inverse_cdf_batched,
+    )
+
+    dev = torch.device("cuda")
+    limit = max_classes(dev)
+    L, n = 76, 100
+    offsets = np.concatenate([[0], np.cumsum(LARGE_C_BATCH)])
+    total = int(offsets[-1])
+    shapes, max_err = [], 0
+    for C in (*LARGE_C, limit):
+        rows = _tile_rows(C, torch.cuda.current_device())
+        probs_cpu = torch.from_numpy(random_probs(max(L, total), C, C))
+        probs = probs_cpu.to(dev)
+        one, packed = probs[:L], probs[:total]
+        u = torch.from_numpy(philox_uniforms(SEED, n, L))
+        ub = torch.from_numpy(philox_uniforms_batched(SEED, n, offsets))
+        equal = True
+        for cmap in (None, large_class_map(C)):
+            dmap = None if cmap is None else cmap.to(dev)
+            got = sample_inverse_cdf(one, n, SEED, dmap)
+            want = sample_codes_plain(probs_cpu[:L], u, cmap)
+            gotb = sample_inverse_cdf_batched(packed, offsets, n, SEED, dmap)
+            wantb = sample_codes_plain_batched(probs_cpu[:total], offsets, ub, cmap)
+            torch.cuda.synchronize()
+            err = max(int((a.cpu().long() - b.long()).abs().max())
+                      for a, b in zip((*got, *gotb), (*want, *wantb)))
+            assert got[0].dtype == want[0].dtype and gotb[0].dtype == wantb[0].dtype
+            max_err, equal = max(max_err, err), equal and err == 0
+            log(f"sample_inverse_cdf C={C} ({rows} row(s) a tile) map={cmap is not None}: "
+                f"single (L={L}, n={n}) and batched (B={len(LARGE_C_BATCH)}, sum L={total}) "
+                f"codes {got[0].dtype} and counts equal to the plain version on the CPU: "
+                f"{err == 0}")
+        smap = large_class_map(C).to(dev)
+        ud, ubd = u.to(dev), ub.to(dev)
+        cdf, ut = torch.cumsum(one, -1), ud.T.contiguous()
+        cdfb, ubt = torch.cumsum(packed, -1), ubd.T.contiguous()
+        dev_offsets = torch.from_numpy(_host_offsets(offsets, total).astype(np.int32)).to(dev)
+        for entry, Lx, run, launch, library, plain, extra in (
+                ("single", L, lambda: sample_inverse_cdf(one, n, SEED, smap),
+                 lambda: sample_inverse_cdf(one, n, SEED, smap),
+                 lambda: torch.searchsorted(cdf, ut, right=True),
+                 lambda: sample_codes_plain(one, ud, smap), n * N_COUNTED * 4),
+                ("batched", total,
+                 lambda: sample_inverse_cdf_batched(packed, offsets, n, SEED, smap),
+                 lambda: _launch_batched(packed, dev_offsets, n, SEED, smap, rows),
+                 lambda: torch.searchsorted(cdfb, ubt, right=True),
+                 lambda: sample_codes_plain_batched(packed, offsets, ubd, smap),
+                 len(LARGE_C_BATCH) * n * N_COUNTED * 4 + (len(offsets)) * 4)):
+            host_ms = time_ms(run)
+            ms = graph_ms(launch)
+            library_ms = graph_ms(library)
+            plain_ms = graph_ms(plain, reps=5)
+            bound_ms, bound_by = bound(Lx, C, n, n * Lx + extra + C)
+            shapes.append({"entry": entry, "L": Lx, "C": C, "n": n, "map": True,
+                           "tile_rows": rows, "equal_to_plain": equal, "host_ms": host_ms,
+                           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "bound_share": bound_ms / ms})
+            log(f"sample_inverse_cdf {entry} L={Lx} C={C} n={n} map=True: (a) host-inclusive "
+                f"{host_ms:.4f} ms/call; (b) device {ms * 1e3:.2f} us/call; (c) bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by}), share {bound_ms / ms:.3f}; (d) "
+                f"searchsorted {library_ms * 1e3:.2f} us; (e) plain {plain_ms * 1e3:.2f} us")
+        assert equal, f"the kernel disagrees with its plain version at C={C}"
+    for fn in (lambda p: sample_inverse_cdf(p, 4, SEED),
+               lambda p: sample_inverse_cdf_batched(p, [0, 3], 4, SEED)):
+        try:
+            fn(torch.ones((3, limit + 1), device=dev))
+        except ValueError as e:
+            assert f"limit of {limit}" in str(e), e
+        else:
+            raise AssertionError(f"C={limit + 1} was not refused")
+    log(f"sample_inverse_cdf: C={limit + 1}, one past the limit, refused by both entries")
+    return {"shapes": shapes, "max_abs_err": max_err, "limit": limit}
+
+
+def property_structures() -> dict:
+    """PDB text of 1ubq and of the 760-residue multichain, by name."""
+    text = gzip.decompress(UBQ.read_bytes()).decode()
+    return {"1ubq": text, "multichain": multichain_pdb(text)}
+
+
+def parse(text: str, name: str):
+    from timed_design_tpu_torch.structure import parse_pdb_string
+
+    return parse_pdb_string(text, name=name)[0]
+
+
+def check_property_design() -> dict:
+    """Property-constrained design at registry widths: 1ubq and the
+    multichain rewritten by ``modify_structure_with_property``, once with the
+    charge map zeroed and once with a map from the seed, designed by
+    TIMED_Charge (CNOCACBQ, random weights from the seed, bfloat16, batch
+    512) through DesignSession with 100 samples each (one sampling launch a
+    design, counted); TIMED_Polar (CNOCACBP) once on 1ubq. Checks: the Q
+    channel of the neutralized frames is empty on the card and the CPU; the
+    float32 probabilities of 1ubq on the card within 1e-4 of the CPU's (TF32
+    off); every sample's metrics recomputed from its sequence to 1e-4
+    (relative; absolute below 1)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.engine import DesignSession
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.sample.metrics import sequence_metrics
+    from timed_design_tpu_torch.sample.sampler import apply_temperature, sample_structure
+    from timed_design_tpu_torch.structure import modify_structure_with_property
+    from timed_design_tpu_torch.voxel import structure_to_frame_atoms, voxelize_frame_atoms
+
+    texts = property_structures()
+    rng = np.random.default_rng(SEED)
+    sessions = {}
+    for name in ("TIMED_Charge", "TIMED_Polar"):
+        torch.manual_seed(SEED)
+        sessions[name] = DesignSession(name, compute_dtype="bfloat16", batch_size=512,
+                                       allow_random_weights=True, device="cuda")
+    charge = sessions["TIMED_Charge"]
+    assert charge.codec.channels[-1] == "Q" and sessions["TIMED_Polar"].codec.channels[-1] == "P"
+    cases = []  # (model, structure name, map name, property, map)
+    for sname in texts:
+        R = len(parse(texts[sname], sname).sequence1())
+        cases.append(("TIMED_Charge", sname, "zeroed", "charge", np.zeros(R, np.int64)))
+        cases.append(("TIMED_Charge", sname, "seeded", "charge", rng.integers(-1, 2, R)))
+    cases.append(("TIMED_Polar", "1ubq", "seeded", "polarity", rng.integers(0, 2, 76)))
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+    results, worst_metric, f32_err = [], 0.0, 0.0
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        for model, sname, mname, prop, pmap in cases:
+            session = sessions[model]
+            structure = modify_structure_with_property(parse(texts[sname], sname), pmap, prop)
+            t0 = time.perf_counter()
+            probs, fa = session.design(structure)
+            p = apply_temperature(torch.as_tensor(probs, device=session.device), 0.2)
+            samples = sample_structure(p, 100, SEED, rotamer_mode=False)
+            wall = time.perf_counter() - t0
+            assert probs.shape == (len(pmap), 20) and np.isfinite(probs).all()
+            assert np.abs(probs.sum(1) - 1).max() <= 1e-3 and len(samples) == 100
+            for seq, *metrics in samples:
+                want = sequence_metrics(seq)
+                worst_metric = max(worst_metric, float(np.max(
+                    np.abs(np.subtract(metrics, want)) / np.maximum(np.abs(want), 1.0))))
+            entry = {"model": model, "structure": sname, "map": mname, "residues": len(pmap),
+                     "design_and_samples_s": wall}
+            if mname == "zeroed":  # the Q channel of the neutralized frames
+                frames, _ = session.voxelize(structure)
+                cpu = voxelize_frame_atoms(structure_to_frame_atoms(structure, session.codec),
+                                           session.codec, device="cpu")
+                entry["q_channel_max"] = max(float(frames[..., -1].abs().max()),
+                                             float(cpu[..., -1].abs().max()))
+                assert entry["q_channel_max"] < 1e-6, entry
+            if sname == "1ubq" and model == "TIMED_Charge":  # float32, card against CPU
+                module = copy.deepcopy(session.predictor.model).float()
+                module.compute_dtype = torch.float32
+                kw = {"codec": session.codec, "batch_size": 128, "compute_dtype": "float32"}
+                got = DesignSession(module, device="cuda", **kw).design(structure)[0]
+                want = DesignSession(copy.deepcopy(module).cpu(), device="cpu",
+                                     **kw).design(structure)[0]
+                entry["f32_card_vs_cpu_max_abs_dp"] = float(np.abs(got - want).max())
+                f32_err = max(f32_err, entry["f32_card_vs_cpu_max_abs_dp"])
+                assert entry["f32_card_vs_cpu_max_abs_dp"] <= 1e-4, entry
+            results.append(entry)
+            checks = {k: v for k, v in entry.items() if k.endswith(("max", "dp"))}
+            log(f"property design {model} {sname} ({len(pmap)} residues) {prop} map "
+                f"{mname}: design + 100 samples {wall * 1e3:.1f} ms; {checks}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = sample_inverse_cdf.launches
+    log(f"property design: {len(cases)} designs, launches of sample_inverse_cdf = "
+        f"{launches}; sampled metrics against the sequences' at most {worst_metric:.3g} "
+        "relative")
+    assert launches == len(cases) and sample_inverse_cdf_batched.launches == 0
+    assert worst_metric <= 1e-4
+    return {"launches": launches, "designs": results, "f32_card_vs_cpu_max_abs_dp": f32_err,
+            "worst_metric_rel_err": worst_metric}
+
+
+def check_scatter_voxelizer() -> dict:
+    """The scatter voxelizer on the card: 1ubq and the multichain, codecs
+    CNOCACB and CNOCACBQ, gaussian and boolean, against the card's matmul
+    voxelizer (2e-5) and against itself on the CPU (1e-6: atomic adds in
+    another order; 1ubq in every case, the multichain once); the pdf spread
+    against the integral (below 2e-3); ms per structure of both voxelizers
+    on the card (CUDA events, 5 calls)."""
+    import functools
+
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    texts = property_structures()
+    out, worst = [], {"matmul": 0.0, "cpu": 0.0}
+    for sname, text in texts.items():
+        structure = parse(text, sname)
+        for codec in ("CNOCACB", "CNOCACBQ"):
+            c = Codec.from_string(codec)
+            fa = structure_to_frame_atoms(structure, c)
+            for gaussian in (True, False):
+                def vox(impl, device="cuda", spread="integral", _fa=fa, _c=c, _g=gaussian):
+                    return voxelize_frame_atoms(_fa, _c, gaussian=_g, impl=impl,
+                                                spread=spread, device=device)
+
+                scatter = vox("scatter")
+                entry = {"structure": sname, "codec": codec, "gaussian": gaussian,
+                         "residues": int(scatter.shape[0]),
+                         "vs_matmul": float((scatter - vox("matmul")).abs().max())}
+                if sname == "1ubq" or (codec == "CNOCACBQ" and gaussian):
+                    entry["vs_cpu"] = float((scatter.cpu() - vox("scatter", "cpu")).abs().max())
+                    worst["cpu"] = max(worst["cpu"], entry["vs_cpu"])
+                if gaussian:
+                    entry["pdf_vs_integral"] = float(
+                        (vox("scatter", spread="pdf") - scatter).abs().max())
+                    assert 0 < entry["pdf_vs_integral"] < 2e-3, entry
+                    for impl in ("matmul", "scatter"):
+                        entry[f"{impl}_ms"] = time_ms(functools.partial(vox, impl), reps=5,
+                                                      warmup=1)
+                worst["matmul"] = max(worst["matmul"], entry["vs_matmul"])
+                out.append(entry)
+                log(f"scatter voxelizer {sname} {codec} {'gaussian' if gaussian else 'boolean'}: "
+                    + ", ".join(f"{k} {v:.4g}" for k, v in entry.items()
+                                if isinstance(v, float)))
+    assert worst["matmul"] <= 2e-5 and worst["cpu"] <= 1e-6, worst
+    return {"cases": out, "max_vs_matmul": worst["matmul"], "max_vs_cpu": worst["cpu"]}
+
+
+def check_report() -> dict:
+    """The design report from the card. Where matplotlib imports: ``/report``
+    of a TIMED_Charge server, ``td-predict --report`` and ``td-report`` on
+    its outputs as subprocesses, each with its sections and images. Where it
+    does not (the card's machine): ``td-report`` and ``td-predict --report``
+    as subprocesses exit non-zero naming matplotlib before reading their
+    (absent) inputs; ``/report`` answers an error naming matplotlib before
+    the designer sees the request; ``/design`` answers 200 right after."""
+    import importlib.util
+    import os
+    import tempfile
+    import urllib.error
+
+    from timed_design_tpu_torch.cli.serve import make_server
+    from timed_design_tpu_torch.engine import DesignSession
+    from timed_design_tpu_torch.engine.coalescer import SerialDesigner
+
+    import torch
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_report_", dir=ROOT))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    pdb = gzip.decompress(UBQ.read_bytes()).decode()
+    torch.manual_seed(SEED)
+    d = SerialDesigner(DesignSession("TIMED_Charge", allow_random_weights=True,
+                                     batch_size=512, device="cuda"))
+    server = make_server(d, "127.0.0.1", 0, "TIMED_Charge")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    result = {"matplotlib": has_mpl}
+    try:
+        req = urllib.request.Request(url + "/report", data=pdb.encode(), method="POST")
+        if has_mpl:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                doc = r.read().decode()
+            assert r.status == 200 and "<h2>queryA</h2>" in doc
+            assert doc.count("data:image/png;base64,") == 3
+        else:
+            try:
+                urllib.request.urlopen(req, timeout=300)
+                raise AssertionError("/report answered without matplotlib")
+            except urllib.error.HTTPError as e:
+                body = json.loads(e.read())
+                assert e.code == 422 and "matplotlib" in body["error"], body
+            assert d.stats["requests"] == 0, "/report reached the designer"
+        status, body, _ = post(url + "/design", {"pdb": pdb, "n_samples": 10, "seed": 1})
+        assert status == 200 and body["n_residues"] == 76 and len(body["samples"]) == 10
+        result["report_status"] = 200 if has_mpl else 422
+        out = work / "out"
+        predict = [sys.executable, "-m", "timed_design_tpu_torch.cli.predict", "--voxelize",
+                   "--path_to_model", "TIMED_Charge", "--allow-random-weights",
+                   "--codec", "CNOCACBQ", "--report", "--device", "cuda",
+                   "--path_to_output", str(out),
+                   "--path_to_datasetmap", str(out / "datasetmap.txt")]
+        report = [sys.executable, "-m", "timed_design_tpu_torch.cli.report",
+                  "--path_to_output", str(out)]
+        if has_mpl:
+            runs = [predict + ["--path_to_dataset", str(UBQ)],
+                    report + ["--path_to_pred_matrix", str(out / "TIMED_Charge.csv"),
+                              "--path_to_datasetmap", str(out / "TIMED_Charge.txt")]]
+        else:
+            missing = str(work / "missing")
+            runs = [predict + ["--path_to_dataset", missing + ".pdb"],
+                    report + ["--path_to_pred_matrix", missing + ".csv",
+                              "--path_to_datasetmap", missing + ".txt"]]
+        for argv in runs:
+            proc = subprocess.run(argv, cwd=work, capture_output=True, text=True,
+                                  timeout=600, env=env)
+            if has_mpl:
+                assert proc.returncode == 0, proc.stdout + proc.stderr
+            else:
+                assert proc.returncode != 0 and "matplotlib" in proc.stderr, proc.stderr
+                assert "missing" not in proc.stderr and not out.exists(), proc.stderr
+                log(f"report: {argv[2]} without matplotlib exits {proc.returncode}: "
+                    f"{proc.stderr.strip().splitlines()[-1]}")
+        if has_mpl:
+            doc = (out / "TIMED_Charge_report.html").read_text()
+            assert "<h2>1ubqA</h2>" in doc and doc.count("data:image/png;base64,") == 3
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+        d.close()
+        shutil.rmtree(work, ignore_errors=True)
+    log("report: " + ("matplotlib present: /report, td-predict --report and td-report rendered"
+                       if has_mpl else "matplotlib missing: td-report, td-predict --report and "
+                       "/report refused before any work, /design answered 200 after"))
+    return result
+
+
+def check_properties() -> dict:
+    """The phase of property-constrained design, the scatter voxelizer, the
+    design report and the sampling kernel past C = 341; its launches are
+    the property designs'."""
+    t0 = time.perf_counter()
+    large = check_large_classes()
+    design = check_property_design()
+    scatter = check_scatter_voxelizer()
+    report = check_report()
+    phase_s = time.perf_counter() - t0
+    log(f"properties: phase passed in {phase_s:.1f} s")
+    return {"launches": design["launches"], "large_c": large, "design": design,
+            "scatter": scatter, "report": report, "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -2526,20 +2907,23 @@ def main() -> int:
     families = check_families()
     td_predict = check_td_predict()
     analyse = check_analyse()
+    properties = check_properties()
     train = check_train()
     assert conv3d_int8.launches == 0, "an unquantized path launched the int8 kernel"
     quantize = check_quantize()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
-                    "td_predict": td_predict, "analyse": analyse, "train": train,
-                    "quantize": quantize}))
+                    "td_predict": td_predict, "analyse": analyse, "properties": properties,
+                    "train": train, "quantize": quantize}))
     main_shape = kernel["shapes"][0]
     # TIMED's 64 -> 128 block: the largest of its int8 convolutions
     conv_main = quantize["kernel"]["per_shape"][3]
     # td-predict and training reach no TPU kernel (voxelizer and convs are
-    # plain torch); the analysis reaches the sampler through its sweep
+    # plain torch); the analysis reaches the sampler through its sweep, and
+    # property-constrained design through each design's samples
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
                 "families": families["launches"], "td_predict": td_predict["launches"],
-                "analyse": analyse["launches"], "train": train["launches"]}
+                "analyse": analyse["launches"], "properties": properties["launches"],
+                "train": train["launches"]}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",
@@ -2547,15 +2931,18 @@ def main() -> int:
         "replaces": "timed_design_tpu/ops/pallas_sample.py:88",
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max(kernel["max_abs_err"], batched["max_abs_err"]),
+        "max_abs_err": max(kernel["max_abs_err"], batched["max_abs_err"],
+                           properties["large_c"]["max_abs_err"]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "shape": [main_shape["L"], main_shape["C"], main_shape["n"]],
-        "equal_to_plain": all(s["equal_to_plain"] for s in kernel["shapes"]),
-        "per_shape": kernel["shapes"],
+        "equal_to_plain": all(s["equal_to_plain"]
+                              for s in kernel["shapes"] + properties["large_c"]["shapes"]),
+        "per_shape": kernel["shapes"] + properties["large_c"]["shapes"],
+        "max_classes": properties["large_c"]["limit"],
         "batched": batched,
     }, {
         "name": "conv3d_int8",

@@ -604,7 +604,7 @@ REFUSALS = {
     "hdf5": (["--path_to_dataset", "x.hdf5", "--voxelize"], "td-predict on HDF5 datasets"),
     "no_voxelize": (["--path_to_dataset", "x.pdb"], "--voxelize is required"),
     "quantize": (["--voxelize", "--quantize", "w8"], None),
-    "report": (["--voxelize", "--path_to_dataset", "x.pdb", "--report"], "item 6"),
+    "report": (["--voxelize", "--path_to_dataset", "x.pdb", "--report"], None),
     "output_analysis": (["--voxelize", "--output_analysis"], None),
 }
 
@@ -612,8 +612,9 @@ REFUSALS = {
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_refusals(case, tmp_path, structures, ckpts):
     """What the port does not take exits with a message that names its
-    ROADMAP item; ``--quantize`` and ``--output_analysis``, ported, run
-    (``--quantize w8 --device cpu`` on a small checkpoint; the analysis
+    ROADMAP item; ``--quantize``, ``--report`` and ``--output_analysis``,
+    ported, run (``--quantize w8 --device cpu`` on a small checkpoint; the
+    design report of ``--report``, named after the model; the analysis
     graphs of ``--output_analysis``, one set per chain)."""
     from timed_design_tpu_torch.cli.predict import main
 
@@ -624,7 +625,10 @@ def test_refusals(case, tmp_path, structures, ckpts):
         _run_port(argv, tmp_path)
         assert len(_fasta(tmp_path / "TIMED.fasta")[">AinsA"]) == 12
         graphs = {"AinsA_probabilities_heatmap.png", "AinsA_mean_var.png", "AinsA_logo.png"}
-        assert (graphs <= {p.name for p in tmp_path.iterdir()}) is (case == "output_analysis")
+        written = {p.name for p in tmp_path.iterdir()}
+        assert (graphs <= written) is (case == "output_analysis")
+        report = Path(ckpts["TIMED"].split("@")[1]).stem + "_report.html"
+        assert (report in written) is (case == "report")
         return
     with pytest.raises(SystemExit, match=message):
         main(argv + ["--path_to_model", "TIMED", "--device", "cpu"])

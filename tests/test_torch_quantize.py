@@ -344,23 +344,27 @@ def _family(name):
     from timed_design_tpu.models import densenet, prodconn, timed
     from timed_design_tpu_torch.models import MODEL_REGISTRY, TIMED, DenseNet3D, ProDCoNN
 
-    if name == "TIMED":
-        fm, pm = timed(filters=(8, 16)), TIMED(filters=(8, 16))
-    elif name == "ProDCoNN":
-        fm, pm = prodconn(), ProDCoNN()
-    else:
-        fm, pm = densenet(**DENSENET), DenseNet3D(**DENSENET)
-    v = fm.init(jax.random.key(0), np.zeros((1, 21, 21, 21, 5), np.float32))
-    rng = np.random.default_rng(0)
-    params = jax.tree.map(np.asarray, v["params"])
-    if name == "DenseNet":
-        params["Dense_0"]["kernel"] = params["Dense_0"]["kernel"] * 8
-    stats = jax.tree.map(np.asarray, v.get("batch_stats", {}))
-    for bn in jax.tree.leaves(stats, is_leaf=lambda n: isinstance(n, dict) and "var" in n):
-        bn["var"] = bn["var"] + rng.uniform(0.1, 0.5, bn["var"].shape).astype(np.float32)
-    variables = {"params": params, "batch_stats": stats}
-    pm.load_state_dict(MODEL_REGISTRY[name].convert(variables))
-    return fm, variables, pm.eval()
+    # Built outside inference mode, whatever the first caller runs under:
+    # inference-mode parameters would make a later forward outside it fail
+    # on autograd instead of the port's own checks.
+    with torch.inference_mode(False):
+        if name == "TIMED":
+            fm, pm = timed(filters=(8, 16)), TIMED(filters=(8, 16))
+        elif name == "ProDCoNN":
+            fm, pm = prodconn(), ProDCoNN()
+        else:
+            fm, pm = densenet(**DENSENET), DenseNet3D(**DENSENET)
+        v = fm.init(jax.random.key(0), np.zeros((1, 21, 21, 21, 5), np.float32))
+        rng = np.random.default_rng(0)
+        params = jax.tree.map(np.asarray, v["params"])
+        if name == "DenseNet":
+            params["Dense_0"]["kernel"] = params["Dense_0"]["kernel"] * 8
+        stats = jax.tree.map(np.asarray, v.get("batch_stats", {}))
+        for bn in jax.tree.leaves(stats, is_leaf=lambda n: isinstance(n, dict) and "var" in n):
+            bn["var"] = bn["var"] + rng.uniform(0.1, 0.5, bn["var"].shape).astype(np.float32)
+        variables = {"params": params, "batch_stats": stats}
+        pm.load_state_dict(MODEL_REGISTRY[name].convert(variables))
+        return fm, variables, pm.eval()
 
 
 @pytest.fixture(scope="module")

@@ -298,6 +298,60 @@ def test_kernel_matches_plain_on_card(cuda_device, L, C, n, rotamer):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [512, 1024, 4096, "limit"])
+def test_kernel_past_341_classes_on_card(cuda_device, C):
+    """Past C = 341 the kernel's tile has fewer rows (down to one at the
+    limit, 25,257 on an H100); codes and counts of both entries stay equal
+    to the plain version run on a CPU copy, with a class map and without.
+    One class past the limit raises."""
+    from timed_design_tpu_torch.ops.sample import (
+        max_classes,
+        philox_uniforms,
+        philox_uniforms_batched,
+        sample_codes_plain,
+        sample_codes_plain_batched,
+        sample_inverse_cdf,
+        sample_inverse_cdf_batched,
+    )
+
+    if C == "limit":
+        C = max_classes(cuda_device)
+        with pytest.raises(ValueError, match=f"limit of {C}"):
+            sample_inverse_cdf(torch.ones((3, C + 1), device=cuda_device), 4, seed=1)
+    L, n, lengths = 37, 50, [16, 0, 13, 8]
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    probs = torch.from_numpy(_probs(L, C, seed=C) ** 4)
+    for cmap in (None, torch.from_numpy((np.arange(C) % 23).astype(np.uint8))):
+        dmap = None if cmap is None else cmap.to(cuda_device)
+        codes, counts = sample_inverse_cdf(probs.to(cuda_device), n, 29, dmap)
+        want = sample_codes_plain(probs, torch.from_numpy(philox_uniforms(29, n, L)), cmap)
+        torch.testing.assert_close(codes.cpu(), want[0], rtol=0, atol=0)
+        torch.testing.assert_close(counts.cpu(), want[1], rtol=0, atol=0)
+        head = probs[:offsets[-1]]
+        codes, counts = sample_inverse_cdf_batched(head.to(cuda_device), offsets, n, 29, dmap)
+        want = sample_codes_plain_batched(
+            head, offsets, torch.from_numpy(philox_uniforms_batched(29, n, offsets)), cmap)
+        torch.testing.assert_close(codes.cpu(), want[0], rtol=0, atol=0)
+        torch.testing.assert_close(counts.cpu(), want[1], rtol=0, atol=0)
+
+
+def test_cpu_wrapper_takes_any_class_count():
+    """On the CPU the wrapper runs the plain version, which has no limit on
+    C: 30,000 classes (past the kernel's) draw as the plain version does."""
+    from timed_design_tpu_torch.ops.sample import (
+        philox_uniforms,
+        sample_codes_plain,
+        sample_inverse_cdf,
+    )
+
+    probs = torch.from_numpy(_probs(5, 30_000, seed=3))
+    codes, counts = sample_inverse_cdf(probs, 7, seed=2)
+    want = sample_codes_plain(probs, torch.from_numpy(philox_uniforms(2, 7, 5)))
+    assert codes.dtype == torch.int16 and int(codes.max()) >= 1000
+    assert torch.equal(codes, want[0]) and torch.equal(counts, want[1])
+
+
+@pytest.mark.cuda
 def test_kernel_statistics_on_card(cuda_device):
     from timed_design_tpu_torch.ops.sample import sample_inverse_cdf
 

@@ -220,9 +220,14 @@ def test_design_bad_inputs(server_url, payload, code):
     assert status == code and "error" in body
 
 
-def test_unknown_paths(server_url):
-    status, body = _post(server_url + "/report", b"x")
-    assert status == 501 and "not ported" in body["error"]
+def test_unknown_paths(server_url, pdb_text):
+    """/report, ported, answers 200 with the HTML design report; an unknown
+    path answers 404."""
+    req = urllib.request.Request(server_url + "/report", data=pdb_text.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        assert r.status == 200 and r.headers["Content-Type"].startswith("text/html")
+        doc = r.read().decode()
+    assert "<h2>queryA</h2>" in doc and doc.count("data:image/png;base64,") == 3
     status, _ = _post(server_url + "/nope", b"x")
     assert status == 404
 

@@ -23,6 +23,8 @@ TABLES = [
     "RESIDUE_CHARGE", "RESIDUE_MW", "RESIDUE_EXT_280", "MW_ARR", "EXT280_ARR",
     "PKA_POSITIVE", "PKA_NEGATIVE", "PKA_SIDECHAIN_ARR", "PKA_SIGN_ARR", "WATER_MASS",
     "N_ROTAMER_CLASSES", "ROTAMER_TO_AA", "ROTAMER_TO_AA_ONEHOT", "ROTAMER_CATEGORIES",
+    "AA1_TO_AA3", "CHARGE_ARR", "IS_POLAR_ARR", "POLARITY_ARR", "CHI_COUNTS_ARR",
+    "N_AMINO_ACIDS", "ROTAMER_CATEGORIES_1LETTER", "ROTAMER_CHI_BINS",
 ]
 
 
@@ -182,3 +184,28 @@ def test_port_imports_nothing_of_the_jax_package(path):
             top = name.split(".")[0]
             assert top not in ("timed_design_tpu", "jax", "jaxlib", "flax", "optax", "h5py"), (
                 f"{path}:{node.lineno} imports {name}")
+
+
+def _imported_tops(tree) -> list[tuple[int, str]]:
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name.split(".")[0]) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append((node.lineno, (node.module or "").split(".")[0]))
+    return out
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_matplotlib_only_through_pyplot(path):
+    """No module of the port imports matplotlib but ``analyse/plots.py``,
+    and that one only inside its functions (``pyplot`` and the plots that
+    call it first), so the card's machine, which has no matplotlib, imports
+    every module."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    if path == "timed_design_tpu_torch/analyse/plots.py":
+        top_level = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert "matplotlib" not in [top for _, top in _imported_tops(ast.Module(top_level, []))]
+        return
+    for lineno, top in _imported_tops(tree):
+        assert top != "matplotlib", f"{path}:{lineno} imports matplotlib"

@@ -116,3 +116,92 @@ def test_frames_of_several_structures_in_one_call(ubq, codec):
     want = np.stack([alone[s][r] for s, r in zip(structure, row)])
     assert len({len(p.atom_channel) for p in parts}) == 3 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------- the scatter voxelizer
+
+SCATTER_CASES = [("integral", True), ("pdf", True), ("integral", False)]
+
+
+@pytest.mark.parametrize("spread,gaussian", SCATTER_CASES, ids=["integral", "pdf", "boolean"])
+@pytest.mark.parametrize("codec", ["CNOCACB", "CNOCACBQ", "CNOCACBP"])
+def test_scatter_voxelizer_matches_jax(ubq, codec, spread, gaussian):
+    """``voxelize_frame_atoms(impl="scatter")`` against the JAX package's,
+    each codec, gaussian (both spreads) and boolean; 1e-6: float32 weights
+    added in another order."""
+    from timed_design_tpu.voxel import Codec as JCodec
+    from timed_design_tpu.voxel import voxelize_frame_atoms as jax_vfa
+
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    c = Codec.from_string(codec)
+    fa = structure_to_frame_atoms(ubq, c)
+    got = voxelize_frame_atoms(fa, c, gaussian=gaussian, impl="scatter", spread=spread,
+                               device="cpu").numpy()
+    want = np.asarray(jax_vfa(fa, JCodec.from_string(codec), gaussian=gaussian,
+                              impl="scatter", spread=spread))
+    assert got.shape == want.shape == (76, 21, 21, 21, c.n_channels)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("gaussian", [True, False], ids=["gaussian", "boolean"])
+@pytest.mark.parametrize("codec", ["CNOCACB", "CNOCACBQ"])
+def test_scatter_voxelizer_matches_matmul(ubq, codec, gaussian):
+    """The port's two formulations agree within 2e-5 (the JAX package's pin
+    in tests/test_voxel.py), chunked or not."""
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    c = Codec.from_string(codec)
+    fa = structure_to_frame_atoms(ubq, c)
+    matmul = voxelize_frame_atoms(fa, c, gaussian=gaussian, device="cpu").numpy()
+    for chunk in (None, 7):
+        scatter = voxelize_frame_atoms(fa, c, gaussian=gaussian, chunk=chunk, impl="scatter",
+                                       device="cpu").numpy()
+        np.testing.assert_allclose(scatter, matmul, rtol=0, atol=2e-5)
+
+
+def test_voxelizer_impl_rule(ubq):
+    """JAX's rule: a spread other than "integral" takes the scatter path
+    even where the matmul one is asked for; the pdf spread differs from the
+    integral below 2e-3 (tests/test_voxel.py's pin); an unknown impl or
+    spread raises."""
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    c = Codec.CNOCACB()
+    fa = structure_to_frame_atoms(ubq, c)
+    pdf = voxelize_frame_atoms(fa, c, spread="pdf", device="cpu")
+    assert torch.equal(pdf, voxelize_frame_atoms(fa, c, impl="scatter", spread="pdf",
+                                                 device="cpu"))
+    integral = voxelize_frame_atoms(fa, c, device="cpu")
+    gap = float((pdf - integral).abs().max())
+    assert 0 < gap < 2e-3
+    with pytest.raises(ValueError, match="impl"):
+        voxelize_frame_atoms(fa, c, impl="pallas", device="cpu")
+    with pytest.raises(ValueError, match="spread"):
+        voxelize_frame_atoms(fa, c, impl="scatter", spread="box", device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread,gaussian", SCATTER_CASES, ids=["integral", "pdf", "boolean"])
+def test_scatter_voxelizer_on_card(spread, gaussian):
+    """The scatter voxelizer on the card against itself on the CPU (1e-6:
+    atomic adds in another order) and against the card's matmul one (2e-5),
+    on 1ubq with the Q codec."""
+    from pathlib import Path
+
+    from timed_design_tpu_torch.structure import load_pdb as port_load_pdb
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    ubq_path = Path(__file__).resolve().parent / "testing_files" / "1ubq.pdb1.gz"
+    c = Codec.from_string("CNOCACBQ")
+    fa = structure_to_frame_atoms(port_load_pdb(ubq_path), c)
+    card = voxelize_frame_atoms(fa, c, gaussian=gaussian, impl="scatter", spread=spread,
+                                device="cuda").cpu()
+    cpu = voxelize_frame_atoms(fa, c, gaussian=gaussian, impl="scatter", spread=spread,
+                               device="cpu")
+    torch.testing.assert_close(card, cpu, rtol=0, atol=1e-6)
+    if spread == "integral":
+        matmul = voxelize_frame_atoms(fa, c, gaussian=gaussian, device="cuda").cpu()
+        torch.testing.assert_close(card, matmul, rtol=0, atol=2e-5)

@@ -44,6 +44,15 @@ def pyplot(flag: str):
     return plt
 
 
+def require_pyplot(flag: str) -> None:
+    """For an entry point, before any work: exits with ``pyplot``'s message
+    (it names matplotlib and ``flag``) where matplotlib is missing."""
+    try:
+        pyplot(flag)
+    except ImportError as e:
+        raise SystemExit(str(e)) from e
+
+
 def plot_cm(
     cm: np.ndarray,
     y_labels: t.Sequence[str],

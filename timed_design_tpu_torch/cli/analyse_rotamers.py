@@ -69,12 +69,9 @@ def main(argv=None) -> None:
         raise SystemExit(f"--device {args.device}: no CUDA device here; "
                          "pass --device cpu to compute the metrics on the CPU")
     if args.plot_confusion:
-        from ..analyse.plots import pyplot
+        from ..analyse.plots import require_pyplot
 
-        try:
-            pyplot("--plot_confusion")
-        except ImportError as e:
-            raise SystemExit(str(e)) from e
+        require_pyplot("--plot_confusion")
     out = Path(args.path_to_output)
     out.mkdir(parents=True, exist_ok=True)
     pdb_dir = Path(args.path_to_pdb)

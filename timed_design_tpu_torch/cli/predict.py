@@ -11,15 +11,17 @@ by batch -> every model on each batch -> the JAX package's artifacts:
 ``{model}.fasta``, the SRB map ``{model}.txt``, ``dataset.fasta``,
 ``encoded_labels.csv``, the per-residue ``datasetmap.txt``, with
 ``--is_structure_nmr`` ``{model}_consensus.{fasta,csv,txt}``, and with
-``--ensemble`` the same set as ``ensemble``, and with ``--output_analysis``
-each chain's probability heatmap, mean/variance histograms and sequence
-logo (needs matplotlib). No HDF5 file is written or read.
+``--ensemble`` the same set as ``ensemble``, with ``--report`` the HTML
+design report ``{model}_report.html`` (``report.py``), and with
+``--output_analysis`` each chain's probability heatmap, mean/variance
+histograms and sequence logo. ``--report`` and ``--output_analysis`` draw
+with matplotlib: where it is missing they exit with a message that names it
+before the models load. No HDF5 file is written or read.
 
 The flags of ``timed_design_tpu/cli/predict.py`` plus ``--device`` (default
 ``cuda``; without a card it exits with a message, and runs on the CPU only
 with ``--device cpu``). ``--voxelize`` is required. ``--quantize`` runs
-every convolution in a mode of ``models/quantize.py``. ``--report`` is not
-ported and exits.
+every convolution in a mode of ``models/quantize.py``.
 """
 from __future__ import annotations
 
@@ -31,10 +33,6 @@ from pathlib import Path
 import torch
 
 from ..utils import PredictConfig
-
-NOT_PORTED = {
-    "report": "ROADMAP Queue 1, item 6 (the design report)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Per-chain graphs (probability heatmap, mean/variance "
                         "histograms, sequence logo); needs matplotlib")
     p.add_argument("--report", action="store_true",
-                   help="Not ported: exits with the ROADMAP item that brings it")
+                   help="Also write the HTML design report {model}_report.html "
+                        "(named after the last model, or 'ensemble'); needs matplotlib")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="Conv compute dtype (float32 default, for strict CSV parity)")
@@ -94,9 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run td-predict; returns the engine's PredictionResult."""
     args = build_parser().parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported to the PyTorch package yet: {item}")
     dataset_path = Path(args.path_to_dataset)
     if dataset_path.suffix.lower() in (".hdf5", ".h5"):
         raise SystemExit(
@@ -108,13 +104,11 @@ def main(argv=None):
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; "
                          "pass --device cpu to predict on the CPU")
-    if args.output_analysis:
-        from ..analyse.plots import pyplot
+    from ..analyse.plots import require_pyplot
 
-        try:
-            pyplot("--output_analysis")  # before predicting, not after
-        except ImportError as e:
-            raise SystemExit(str(e)) from e
+    for flag in ("report", "output_analysis"):  # before predicting, not after
+        if getattr(args, flag):
+            require_pyplot(f"--{flag}")
     out = Path(args.path_to_output)
     out.mkdir(parents=True, exist_ok=True)
     cfg = PredictConfig(
@@ -174,6 +168,16 @@ def main(argv=None):
           f"across {len(result.pdb_to_sequence)} chains.")
     for phase, secs in result.timings.items():
         print(f"  {phase}: {secs:.2f}s")
+    if args.report:
+        from ..report import write_design_report
+
+        # the result holds the last model's maps, or the ensemble's
+        name = ("ensemble" if args.ensemble
+                else Path(str(args.path_to_model[-1])).stem.split("@")[0])
+        path = write_design_report(
+            result.pdb_to_sequence, result.pdb_to_real_sequence, result.pdb_to_probability,
+            out, model_name=name, pdb_to_consensus=result.pdb_to_consensus)
+        print(f"Design report written to {path}")
     if args.output_analysis:
         write_analysis_graphs(result.pdb_to_probability, out)
     return result

@@ -15,10 +15,13 @@ API (JSON):
                   for fresh draws per request). Returns the designed
                   sequence, per-residue probabilities, residue ids,
                   timings, the seed used and the samples.
+  POST /report    same body; returns the self-contained HTML design report
+                  (``report.py``), one section per chain. It draws with
+                  matplotlib: where that is missing it answers 422 with a
+                  message that names it, before any design work.
   GET  /metrics   Prometheus text: request counts by endpoint and status,
                   latency histograms, batching stats per model.
 
-``/report`` (HTML reports, matplotlib) is not ported yet and answers 501.
 With several ``--model`` flags a request's "model" field picks one;
 ``--ensemble`` adds a virtual "ensemble" model averaging every member.
 Concurrent requests are coalesced into shared device batches unless
@@ -75,6 +78,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 MAX_SAMPLES_PER_REQUEST = 10_000  # one request must not exhaust the device
 MAX_BODY_BYTES = 64 * 1024 * 1024  # a 50k-atom PDB is ~4 MB of text
+
+# pyplot's figure registry is not thread-safe, and each /report runs on its
+# own handler thread, so renders are serialized; /design does not take it.
+_RENDER_LOCK = threading.Lock()
 
 
 class ServerMetrics:
@@ -155,22 +162,29 @@ class ServerMetrics:
         return "\n".join(lines) + "\n"
 
 
-def _design_payload(designer, pdb_text: str, n_samples: int = 0,
-                    temperature: float = 0.2, seed: int | None = None) -> dict:
-    """Parse -> design -> decode, plus ``n_samples`` Monte-Carlo samples
-    drawn on the designer's device."""
+def _design_core(designer, pdb_text: str):
+    """Parse -> design -> decode, behind /design and /report: (probs,
+    probs20, designed sequence, frame atoms, timings)."""
     from ..constants import AA1, compress_rotamer_probs
-    from ..sample.sampler import apply_temperature, sample_structure
     from ..structure import parse_pdb_string
 
     t0 = time.perf_counter()
     structure = parse_pdb_string(pdb_text, name="query")[0]
     dt_parse = time.perf_counter() - t0
     probs, fa, timings = designer.design(structure)
-    timings = {"parse": dt_parse, **timings}
-    rotamer = probs.shape[1] == 338
-    probs20 = compress_rotamer_probs(probs) if rotamer else probs
+    probs20 = compress_rotamer_probs(probs) if probs.shape[1] == 338 else probs
     seq = "".join(np.array(list(AA1))[probs20.argmax(1)])
+    return probs, probs20, seq, fa, {"parse": dt_parse, **timings}
+
+
+def _design_payload(designer, pdb_text: str, n_samples: int = 0,
+                    temperature: float = 0.2, seed: int | None = None) -> dict:
+    """The design, plus ``n_samples`` Monte-Carlo samples drawn on the
+    designer's device."""
+    from ..sample.sampler import apply_temperature, sample_structure
+
+    probs, probs20, seq, fa, timings = _design_core(designer, pdb_text)
+    rotamer = probs.shape[1] == 338
     out = {
         "sequence": seq,
         "n_residues": len(seq),
@@ -200,6 +214,33 @@ def _design_payload(designer, pdb_text: str, n_samples: int = 0,
     return out
 
 
+def _report_document(designer, pdb_text: str, model_name: str) -> str:
+    """The HTML design report of one backbone, one section per chain; the
+    native sequence is the uploaded structure's own residues. Raises
+    ImportError, naming matplotlib, before any design work where it is
+    missing."""
+    from ..analyse.plots import pyplot
+    from ..constants import AA3_TO_AA1
+    from ..report import render_design_report
+
+    pyplot("/report")
+    probs, _, designed, fa, _ = _design_core(designer, pdb_text)
+    native = "".join(AA3_TO_AA1.get(label, "X") for label in fa.labels)
+    chains = list(dict.fromkeys(fa.chain_ids))
+    if not chains:
+        designed_d, native_d, probs_d = {"query": designed}, {"query": native}, {"query": probs}
+    else:
+        designed_d, native_d, probs_d = {}, {}, {}
+        for ch in chains:
+            idx = [i for i, c in enumerate(fa.chain_ids) if c == ch]
+            key = f"query{ch}"
+            designed_d[key] = "".join(designed[i] for i in idx)
+            native_d[key] = "".join(native[i] for i in idx)
+            probs_d[key] = probs[idx]
+    with _RENDER_LOCK:
+        return render_design_report(designed_d, native_d, probs_d, model_name=model_name)
+
+
 def make_server(designer, host: str, port: int, model_name: str,
                 extra_designers: dict | None = None):
     """``designer``/``model_name``: the default model. ``extra_designers``:
@@ -218,6 +259,15 @@ def make_server(designer, host: str, port: int, model_name: str,
             self.end_headers()
             self.wfile.write(body)
             self._record(code)
+
+        def _send_html(self, doc: str):
+            body = doc.encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            self._record(200)
 
         def _record(self, code: int):
             t0 = getattr(self, "_t0", None)
@@ -252,10 +302,7 @@ def make_server(designer, host: str, port: int, model_name: str,
 
         def do_POST(self):
             self._t0 = time.perf_counter()
-            if self.path == "/report":
-                self._send(501, {"error": "/report is not ported to PyTorch yet"})
-                return
-            if self.path != "/design":
+            if self.path not in ("/design", "/report"):
                 self._send(404, {"error": f"unknown path {self.path}"})
                 return
             try:
@@ -313,6 +360,9 @@ def make_server(designer, host: str, port: int, model_name: str,
                                           f"serving: {sorted(designers)}"})
                 return
             try:
+                if self.path == "/report":
+                    self._send_html(_report_document(d, pdb_text, req_model))
+                    return
                 payload = _design_payload(d, pdb_text, n_samples, temperature, seed)
             except Exception as e:  # noqa: BLE001 - surfaced as HTTP 422
                 self._send(422, {"error": str(e)})
@@ -375,7 +425,7 @@ def main(argv=None) -> None:
     mode = "serial" if args.no_coalesce else "coalescing"
     print(f"Serving {', '.join(designers)} (default {default_name}, {mode}, "
           f"{designers[default_name].session.device}) on http://{host}:{port}  "
-          "(POST /design, GET /healthz)", flush=True)
+          "(POST /design, POST /report, GET /healthz)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

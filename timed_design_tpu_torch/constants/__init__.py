@@ -5,17 +5,23 @@ here so that the port imports nothing of the JAX package.
 """
 from .amino_acids import (  # noqa: F401
     AA1,
+    AA1_TO_AA3,
     AA1_TO_INT,
     AA3,
     AA3_TO_AA1,
     AA3_TO_INT,
+    CHARGE_ARR,
     CHI_COUNTS,
+    CHI_COUNTS_ARR,
     EXT280_ARR,
+    IS_POLAR_ARR,
     MW_ARR,
+    N_AMINO_ACIDS,
     PKA_NEGATIVE,
     PKA_POSITIVE,
     PKA_SIDECHAIN_ARR,
     PKA_SIGN_ARR,
+    POLARITY_ARR,
     POLARITY_ZIMMERMAN,
     RESIDUE_CHARGE,
     RESIDUE_EXT_280,
@@ -25,6 +31,8 @@ from .amino_acids import (  # noqa: F401
     UNCOMMON_RESIDUE_DICT,
     VDW_RADII,
     WATER_MASS,
+    int_to_sequence,
+    sequence_to_int,
 )
 from .blosum import (  # noqa: F401
     BLOSUM62_ALPHABET,
@@ -37,6 +45,8 @@ from .rotamers import (  # noqa: F401
     N_ROTAMER_CLASSES,
     REDUCTION_GUIDE,
     ROTAMER_CATEGORIES,
+    ROTAMER_CATEGORIES_1LETTER,
+    ROTAMER_CHI_BINS,
     ROTAMER_TO_AA,
     ROTAMER_TO_AA_ONEHOT,
     compress_rotamer_probs,

@@ -19,9 +19,11 @@ STANDARD_AMINO_ACIDS: dict[str, str] = {
 
 AA1: tuple[str, ...] = tuple(STANDARD_AMINO_ACIDS.keys())
 AA3: tuple[str, ...] = tuple(STANDARD_AMINO_ACIDS.values())
+AA1_TO_AA3: dict[str, str] = dict(STANDARD_AMINO_ACIDS)
 AA3_TO_AA1: dict[str, str] = {v: k for k, v in STANDARD_AMINO_ACIDS.items()}
 AA1_TO_INT: dict[str, int] = {a: i for i, a in enumerate(AA1)}
 AA3_TO_INT: dict[str, int] = {a: i for i, a in enumerate(AA3)}
+N_AMINO_ACIDS = 20
 
 # Chi dihedrals per residue: the rotamer codec's 3**n_chi fan-out sums to 338.
 CHI_COUNTS: dict[str, int] = {
@@ -118,7 +120,11 @@ UNCOMMON_RESIDUE_DICT: dict[str, str] = {
     "DAL": "ALA", "MAA": "ALA", "FLA": "ALA", "DHA": "ALA",
 }
 
-# Arrays ordered by AA1.
+# Arrays ordered by AA1 (CHI_COUNTS_ARR by AA3, the same order).
+CHI_COUNTS_ARR = np.array([CHI_COUNTS[a] for a in AA3], dtype=np.int32)
+POLARITY_ARR = np.array([POLARITY_ZIMMERMAN[a] for a in AA1], dtype=np.float32)
+IS_POLAR_ARR = (POLARITY_ARR >= 20.0).astype(np.int32)
+CHARGE_ARR = np.array([RESIDUE_CHARGE[a] for a in AA1], dtype=np.int32)
 MW_ARR = np.array([RESIDUE_MW[a] for a in AA1], dtype=np.float64)
 EXT280_ARR = np.array([RESIDUE_EXT_280.get(a, 0) for a in AA1], dtype=np.float64)
 # pKa of the side chain, NaN where it is not titratable; sign +1 basic, -1 acidic.
@@ -129,3 +135,13 @@ PKA_SIGN_ARR = np.array(
     [1 if a in PKA_POSITIVE else (-1 if a in PKA_NEGATIVE else 0) for a in AA1],
     dtype=np.int32,
 )
+
+
+def sequence_to_int(seq: str) -> np.ndarray:
+    """A one-letter sequence -> int32 codes 0..19 (the order of AA1)."""
+    return np.array([AA1_TO_INT[r] for r in seq], dtype=np.int32)
+
+
+def int_to_sequence(codes) -> str:
+    """Codes 0..19 (any shape, read flat) -> a one-letter sequence."""
+    return "".join(AA1[int(c)] for c in np.asarray(codes).reshape(-1))

@@ -1,7 +1,8 @@
 """The 338-class rotamer codec: the port's copy of ``ROTAMER_CATEGORIES``,
-``ROTAMER_TO_AA``, ``ROTAMER_TO_AA_ONEHOT``, ``REDUCTION_GUIDE``,
-``compress_rotamer_probs``, ``get_rotamer_codec`` and
-``encode_chi_bins_to_rotamer`` from ``timed_design_tpu/constants/rotamers.py``.
+``ROTAMER_CATEGORIES_1LETTER``, ``ROTAMER_TO_AA``, ``ROTAMER_TO_AA_ONEHOT``,
+``ROTAMER_CHI_BINS``, ``REDUCTION_GUIDE``, ``compress_rotamer_probs``,
+``get_rotamer_codec`` and ``encode_chi_bins_to_rotamer`` from
+``timed_design_tpu/constants/rotamers.py``.
 
 Per amino acid in AA1 order, one class for every chi-bin combination
 ``product([1, 2, 3], repeat=n_chi)`` (e.g. ``LYS_1232``), and a single
@@ -33,6 +34,15 @@ REDUCTION_GUIDE = np.searchsorted(ROTAMER_TO_AA, np.arange(len(AA1))).astype(np.
 # (338, 20) one-hot matrix: column j collects every rotamer of amino acid j
 ROTAMER_TO_AA_ONEHOT = np.zeros((N_ROTAMER_CLASSES, len(AA1)), dtype=np.float32)
 ROTAMER_TO_AA_ONEHOT[np.arange(N_ROTAMER_CLASSES), ROTAMER_TO_AA] = 1.0
+
+# the one-letter amino acid of each class
+ROTAMER_CATEGORIES_1LETTER = [AA1[i] for i in ROTAMER_TO_AA]
+
+# (338, 4) int32: each class's chi bins (1..3), 0 past the residue's chis
+ROTAMER_CHI_BINS = np.zeros((N_ROTAMER_CLASSES, 4), dtype=np.int32)
+for _k, _name in enumerate(ROTAMER_CATEGORIES):
+    for _c, _b in enumerate(_name.split("_")[1].lstrip("0")):
+        ROTAMER_CHI_BINS[_k, _c] = int(_b)
 
 
 def compress_rotamer_probs(prediction_matrix: np.ndarray) -> np.ndarray:

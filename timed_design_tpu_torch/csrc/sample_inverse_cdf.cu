@@ -42,10 +42,14 @@
 //   - the searches: ceil(log2(C + 1)) dependent steps of random shared-
 //     memory reads.
 // The design:
-//   - A block takes kTileL = 16 positions and a chunk of samples; the
-//     launcher splits samples only as far as it takes to give each SM work,
-//     and never below kMinSamples samples a block, so rows are re-staged
-//     from L2 at most a few times.
+//   - A block takes tile_l positions and a chunk of samples; the launcher
+//     splits samples only as far as it takes to give each SM work, and
+//     never below kMinSamples samples a block, so rows are re-staged from L2
+//     at most a few times. tile_l is kMaxTileL = 16 while 16 rows of doubles
+//     fit in the shared memory a block may opt into (227 KB on an H100: C up
+//     to 1,761), and fewer as C grows, down to one row (C up to 25,257 on an
+//     H100, where the counts and the map take the rest). Draws are keyed by
+//     position, never by tile, so the codes do not depend on tile_l.
 //   - The tile's probabilities arrive by 16-byte loads from one contiguous
 //     span (the tile's rows are adjacent in memory), coalesced, into shared
 //     rows of odd stride (C | 1 doubles): lanes at the same column of
@@ -58,19 +62,22 @@
 //   - A thread takes four adjacent positions of one sample: four searches
 //     interleaved step by step, their probes loaded unconditionally so the
 //     four reads are in flight together; then the map, one 4-byte store of
-//     four codes, and four shared-memory count atomics.
+//     four codes, and four shared-memory count atomics. Past the tile's last
+//     row a probe reads that row again and its code is neither stored nor
+//     counted (tiles of fewer than four rows, a structure's last tile).
 //
 // The batched entry (td-sample's many structures in one launch) takes every
 // structure's rows packed with no padding, (sum L, C), and the (B + 1,)
 // offsets where each starts. A tile never crosses a structure's boundary, so
 // the one-thread-a-row scan stays as it is. Tile t of the grid belongs to the
-// structure b with T_b <= t < T_{b+1}, T_b = b + ceil(offsets[b] / kTileL):
-// T rises by at least ceil(L_b / kTileL) from b to b + 1, so every tile of b
+// structure b with T_b <= t < T_{b+1}, T_b = b + ceil(offsets[b] / tile_l):
+// T rises by at least ceil(L_b / tile_l) from b to b + 1, so every tile of b
 // has its own t, and the at most B values of t that fall in the gaps exit
 // at once. A block finds its b by checking every b once, spread over its
 // threads. Codes go to the columns offsets[b]: of an (n, sum L) matrix,
 // counts to row b * n + s of a (B * n, 20) one; the four-code store is used
-// where the structure's start, its length and sum L are multiples of 4.
+// where the structure's start, its length, sum L and tile_l are multiples of
+// 4.
 //
 // The plain PyTorch versions are sample_codes_plain and
 // sample_codes_plain_batched in timed_design_tpu_torch/ops/sample.py, run on
@@ -82,11 +89,12 @@
 
 namespace {
 
-constexpr int kTileL = 16;        // positions per block
+constexpr int kMaxTileL = 16;     // positions per block, at most
 constexpr int kThreads = 256;
 constexpr int kMinSamples = 32;   // samples per block, at least ...
 constexpr int kMaxSamples = 64;   // ... and at most (the counts' shared tile)
 constexpr int kCounts = 20;       // counted codes: the 20 amino acids
+constexpr int kFound = 3;         // the batched entry's block: b, start, L
 
 __device__ __forceinline__ uint32_t philox_x0(uint32_t l, uint32_t s, uint32_t b,
                                               uint32_t k0, uint32_t k1) {
@@ -166,23 +174,23 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
                           const int32_t* __restrict__ offsets, int B,
                           const uint8_t* __restrict__ class_map,
                           Code* __restrict__ codes, int32_t* __restrict__ counts,
-                          int total, int C, int stride, int top, int n,
+                          int total, int C, int stride, int tile_l, int top, int n,
                           int samples_per_block, uint32_t key0, uint32_t key1) {
   extern __shared__ __align__(16) unsigned char smem[];
-  double* tile = reinterpret_cast<double*>(smem);                    // [rows][stride]
-  int* cnt = reinterpret_cast<int*>(tile + kTileL * stride);         // [samples][20]
+  double* tile = reinterpret_cast<double*>(smem);                    // [tile_l][stride]
+  int* cnt = reinterpret_cast<int*>(tile + tile_l * stride);         // [samples][20]
   uint8_t* map = reinterpret_cast<uint8_t*>(cnt + kMaxSamples * kCounts);  // [C]
+  int* found = reinterpret_cast<int*>(map + ((C + 3) & ~3));          // [kFound]
 
   // the block's structure b, where its rows start, its length L, and the
   // tile's first position l0 within it
-  int b = 0, start = 0, L = total, l0 = blockIdx.y * kTileL;
+  int b = 0, start = 0, L = total, l0 = blockIdx.y * tile_l;
   const int tid = threadIdx.x;
   if constexpr (kBatched) {
-    __shared__ int found[3];
     const int t = blockIdx.y;
     for (int i = tid; i < B; i += kThreads) {
       const int o0 = __ldg(offsets + i), o1 = __ldg(offsets + i + 1);
-      if (i + (o0 + kTileL - 1) / kTileL <= t && t < i + 1 + (o1 + kTileL - 1) / kTileL) {
+      if (i + (o0 + tile_l - 1) / tile_l <= t && t < i + 1 + (o1 + tile_l - 1) / tile_l) {
         found[0] = i;
         found[1] = o0;
         found[2] = o1 - o0;
@@ -192,10 +200,10 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
     b = found[0];
     start = found[1];
     L = found[2];
-    l0 = (t - b - (start + kTileL - 1) / kTileL) * kTileL;
+    l0 = (t - b - (start + tile_l - 1) / tile_l) * tile_l;
     if (l0 >= L) return;  // a tile between two structures: the whole block
   }
-  const int rows = min(kTileL, L - l0);
+  const int rows = min(tile_l, L - l0);
   const int s0 = blockIdx.x * samples_per_block;
   const int samples = min(samples_per_block, n - s0);
 
@@ -252,19 +260,21 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
 
   // 3. four searches per item, the map, one packed store (where every
   //    quad's four codes are the structure's and 4-aligned), the counts
-  const bool packed = ((total | start | L) & 3) == 0;
+  const bool packed = ((total | start | L | tile_l) & 3) == 0;
   for (; item < items; item += kThreads) {
     const int sl = item / quads;
     const int quad = item - sl * quads;
-    const double* row0 = tile + 4 * quad * stride;
+    const double* row[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) row[j] = tile + min(4 * quad + j, rows - 1) * stride;
     int k[4] = {0, 0, 0, 0};
     for (int step = top; step > 0; step >>= 1) {
-      // the four probes load unconditionally (clamped into the row), so
+      // the four probes load unconditionally (clamped into the tile), so
       // their shared-memory reads are in flight together
       long long v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        v[j] = __double_as_longlong(row0[j * stride + min(k[j] + step, C) - 1]);
+        v[j] = __double_as_longlong(row[j][min(k[j] + step, C) - 1]);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -284,7 +294,7 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if (l + j < L) {
+      if (4 * quad + j < rows) {
         if (!packed) dst[j] = static_cast<Code>(code[j]);
         if (code[j] < kCounts) atomicAdd(&cnt[sl * kCounts + code[j]], 1);
       }
@@ -305,23 +315,86 @@ sample_inverse_cdf_kernel(const float* __restrict__ probs,
   }
 }
 
+// Shared memory of a block for C classes and tile_l rows, all of it
+// dynamic: the tile of running sums (double, odd row stride), the counts of
+// kMaxSamples samples, the class map and (batched) the block's structure.
+long long smem_bytes(int C, int tile_l) {
+  return static_cast<long long>(tile_l) * (C | 1) * 8 + kMaxSamples * kCounts * 4 +
+         ((C + 3) & ~3) + kFound * 4;
+}
+
 }  // namespace
 
-// Shared memory of a block for C classes: the tile of running sums (double,
-// odd row stride), the counts of kMaxSamples samples, the class map, and
-// (batched) the block's structure. The wrapper refuses a C for which this
-// passes the 48 KB a block gets without raising its limit (C <= 341; the
-// served heads have 20 and 338 classes).
-extern "C" int sample_inverse_cdf_smem_bytes(int C) {
-  return kTileL * (C | 1) * 8 + kMaxSamples * kCounts * 4 + C + 3 * 4;
+// The shared memory a block of `device` may opt into
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 bytes on an H100), or -1
+// on a CUDA error.
+extern "C" int sample_inverse_cdf_smem_optin(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return bytes;
+}
+
+// Rows of a tile for C classes within smem_max bytes of shared memory:
+// kMaxTileL while they fit, fewer as C grows; 0 when one row does not fit
+// (the wrapper then refuses C).
+extern "C" int sample_inverse_cdf_tile_rows(int C, int smem_max) {
+  const long long fixed = smem_bytes(C, 0);
+  const long long rows = (smem_max - fixed) / (static_cast<long long>(C | 1) * 8);
+  return smem_max < fixed ? 0 : static_cast<int>(rows < kMaxTileL ? rows : kMaxTileL);
 }
 
 namespace {
 
-// Zeroes the B * n rows of counts, then one launch over `tiles` tiles.
+constexpr int kDefaultSmem = 48 * 1024;  // a block's shared memory unasked
+constexpr int kMaxDevices = 64;
+
+// Lets the kernel instance take all the dynamic shared memory a block of
+// the current device may opt into beside its static shared memory, once per
+// instance and device: a launch past 48 KB needs it. Once, and not at every
+// launch, so that no attribute is set while a CUDA graph captures the
+// launches. (Templated on the instance, not on the kernel's type, which
+// both entries share.)
+template <typename Code, bool kBatched>
+cudaError_t raise_smem() {
+  const auto kernel = sample_inverse_cdf_kernel<Code, kBatched>;
+  static bool raised[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || (device < kMaxDevices && raised[device])) return err;
+  const int optin = sample_inverse_cdf_smem_optin(device);
+  if (optin < 0) return cudaGetLastError();
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(attr.sharedSizeBytes));
+  if (err == cudaSuccess && device < kMaxDevices) raised[device] = true;
+  return err;
+}
+
+template <typename Code, bool kBatched>
+int launch_kernel(dim3 grid, size_t smem, cudaStream_t st, const float* p, const int32_t* o,
+                  int B, const uint8_t* m, void* codes, int32_t* k, int total, int C,
+                  int tile_l, int top, int n, int per_block, unsigned int key0,
+                  unsigned int key1) {
+  const auto kernel = sample_inverse_cdf_kernel<Code, kBatched>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = raise_smem<Code, kBatched>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, smem, st>>>(p, o, B, m, static_cast<Code*>(codes), k, total, C,
+                                       C | 1, tile_l, top, n, per_block, key0, key1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Zeroes the B * n rows of counts, then one launch over `tiles` tiles of
+// tile_l rows.
 template <bool kBatched>
 int launch(const void* probs, const void* offsets, int B, const void* class_map,
-           void* codes, void* counts, int total, int tiles, int C, int n,
+           void* codes, void* counts, int total, int tiles, int tile_l, int C, int n,
            int code_bytes, unsigned int key0, unsigned int key1, int num_sms,
            cudaStream_t st) {
   cudaMemsetAsync(counts, 0, static_cast<size_t>(B) * n * kCounts * sizeof(int32_t), st);
@@ -333,21 +406,17 @@ int launch(const void* probs, const void* offsets, int B, const void* class_map,
   const dim3 grid((n + per_block - 1) / per_block, tiles);
   int top = 1;
   while (2 * top <= C) top *= 2;
-  const size_t smem = sample_inverse_cdf_smem_bytes(C);
+  const size_t smem = static_cast<size_t>(smem_bytes(C, tile_l));
   const float* p = static_cast<const float*>(probs);
   const int32_t* o = static_cast<const int32_t*>(offsets);
   const uint8_t* m = static_cast<const uint8_t*>(class_map);
   int32_t* k = static_cast<int32_t*>(counts);
-  if (code_bytes == 1) {
-    sample_inverse_cdf_kernel<uint8_t, kBatched><<<grid, kThreads, smem, st>>>(
-        p, o, B, m, static_cast<uint8_t*>(codes), k, total, C, C | 1, top, n, per_block,
-        key0, key1);
-  } else {
-    sample_inverse_cdf_kernel<uint16_t, kBatched><<<grid, kThreads, smem, st>>>(
-        p, o, B, m, static_cast<uint16_t*>(codes), k, total, C, C | 1, top, n, per_block,
-        key0, key1);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return code_bytes == 1
+             ? launch_kernel<uint8_t, kBatched>(grid, smem, st, p, o, B, m, codes, k, total,
+                                                C, tile_l, top, n, per_block, key0, key1)
+             : launch_kernel<uint16_t, kBatched>(grid, smem, st, p, o, B, m, codes, k,
+                                                 total, C, tile_l, top, n, per_block, key0,
+                                                 key1);
 }
 
 }  // namespace
@@ -355,16 +424,17 @@ int launch(const void* probs, const void* offsets, int B, const void* class_map,
 // probs: (L, C) float32, contiguous, rows of non-negative values.
 // class_map: (C,) uint8 codes on the device, or null.
 // codes: (n, L) uint8, or uint16 when code_bytes == 2. counts: (n, 20) int32.
+// tile_l: rows a block, from sample_inverse_cdf_tile_rows (1..16).
 // Zeroes counts, then launches one kernel, both on `stream`; allocates
 // nothing. num_sms: the device's SM count, to size the grid. Returns
-// cudaGetLastError().
+// cudaGetLastError(), or the error of raising the block's shared memory.
 extern "C" int sample_inverse_cdf(const void* probs, const void* class_map,
                                   void* codes, void* counts, int L, int C, int n,
-                                  int code_bytes, unsigned int key0,
+                                  int code_bytes, int tile_l, unsigned int key0,
                                   unsigned int key1, int num_sms, void* stream) {
   return launch<false>(probs, nullptr, 1, class_map, codes, counts, L,
-                       (L + kTileL - 1) / kTileL, C, n, code_bytes, key0, key1, num_sms,
-                       static_cast<cudaStream_t>(stream));
+                       (L + tile_l - 1) / tile_l, tile_l, C, n, code_bytes, key0, key1,
+                       num_sms, static_cast<cudaStream_t>(stream));
 }
 
 // probs: (total, C) float32, B structures' rows packed with no padding.
@@ -376,9 +446,9 @@ extern "C" int sample_inverse_cdf(const void* probs, const void* class_map,
 extern "C" int sample_inverse_cdf_batched(const void* probs, const void* offsets, int B,
                                           const void* class_map, void* codes,
                                           void* counts, int total, int C, int n,
-                                          int code_bytes, unsigned int key0,
+                                          int code_bytes, int tile_l, unsigned int key0,
                                           unsigned int key1, int num_sms, void* stream) {
   return launch<true>(probs, offsets, B, class_map, codes, counts, total,
-                      B + (total + kTileL - 1) / kTileL, C, n, code_bytes, key0, key1,
-                      num_sms, static_cast<cudaStream_t>(stream));
+                      B + (total + tile_l - 1) / tile_l, tile_l, C, n, code_bytes, key0,
+                      key1, num_sms, static_cast<cudaStream_t>(stream));
 }

@@ -28,8 +28,6 @@ _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 N_COUNTED = 20  # codes counted per sample: the 20 amino acids
-_TILE_L = 16  # positions per block; kTileL in the CUDA source
-_SMEM_LIMIT = 48 * 1024  # a block's shared memory without raising its limit
 
 
 def _seed_key(seed: int) -> tuple[int, int]:
@@ -148,7 +146,10 @@ def _host_offsets(offsets, total: int) -> np.ndarray:
     return offs.astype(np.int64)
 
 
-def _check(probs: torch.Tensor, n_samples: int, class_map: torch.Tensor | None) -> int:
+def _check(probs: torch.Tensor, n_samples: int,
+           class_map: torch.Tensor | None) -> tuple[int, int]:
+    """(n, rows of the kernel's tile; 0 on the CPU), or raises on what the
+    kernel does not take."""
     if probs.ndim != 2 or probs.dtype != torch.float32:
         raise ValueError(f"probs must be (L, C) float32, got {tuple(probs.shape)} {probs.dtype}")
     C = probs.shape[1]
@@ -160,12 +161,17 @@ def _check(probs: torch.Tensor, n_samples: int, class_map: torch.Tensor | None) 
         raise ValueError(f"class_map must be ({C},) uint8 on {probs.device}")
     if probs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no sampling kernel for device {probs.device}")
-    if probs.device.type == "cuda":
-        if _smem_bytes(C) > _SMEM_LIMIT:
-            raise ValueError(f"C={C} classes exceed the kernel's 48 KB shared-memory tile")
-        if n >= 2**31:
-            raise ValueError(f"n={n} exceeds the kernel's grid")
-    return n
+    if probs.device.type == "cpu":
+        return n, 0
+    if n >= 2**31:
+        raise ValueError(f"n={n} exceeds the kernel's grid")
+    rows = _tile_rows(C, _device_index(probs.device))
+    if rows == 0:
+        raise ValueError(
+            f"C={C} classes exceed the sampling kernel's limit of "
+            f"{max_classes(probs.device)} on this card: a block holds at least one "
+            "float64 row of the CDF in its shared memory")
+    return n, rows
 
 
 def sample_inverse_cdf(
@@ -180,13 +186,13 @@ def sample_inverse_cdf(
     launches the kernel and adds one to ``sample_inverse_cdf.launches``; on
     a CPU tensor it runs ``sample_codes_plain`` on the same uniforms.
     """
-    n = _check(probs, n_samples, class_map)
+    n, rows = _check(probs, n_samples, class_map)
     L, C = probs.shape
     if probs.device.type == "cpu":
         u = torch.from_numpy(philox_uniforms(seed, n, L))
         return sample_codes_plain(probs, u, class_map)
-    if -(-L // _TILE_L) > 65535:
-        raise ValueError(f"L={L} exceeds the kernel's grid")
+    if -(-L // rows) > 65535:
+        raise ValueError(f"L={L} exceeds the kernel's grid at {rows} row(s) a block")
     codes = torch.empty((n, L), dtype=code_dtype(C, class_map), device=probs.device)
     counts = torch.empty((n, N_COUNTED), dtype=torch.int32, device=probs.device)
     if n == 0 or L == 0:
@@ -195,7 +201,7 @@ def sample_inverse_cdf(
     key0, key1 = _seed_key(seed)
     _on_device(probs.device.index, lambda sms, stream: _lib().sample_inverse_cdf(
         probs.data_ptr(), _ptr(class_map), codes.data_ptr(), counts.data_ptr(), L, C, n,
-        codes.element_size(), key0, key1, sms, stream))
+        codes.element_size(), rows, key0, key1, sms, stream))
     sample_inverse_cdf.launches += 1
     return codes, counts
 
@@ -221,13 +227,13 @@ def sample_inverse_cdf_batched(
     ``sample_inverse_cdf_batched.launches``; on a CPU tensor it runs
     ``sample_codes_plain_batched`` on the same uniforms.
     """
-    n = _check(probs, n_samples, class_map)
+    n, rows = _check(probs, n_samples, class_map)
     offs = _host_offsets(offsets, probs.shape[0])
     if probs.device.type == "cpu":
         u = torch.from_numpy(philox_uniforms_batched(seed, n, offs))
         return sample_codes_plain_batched(probs, offs, u, class_map)
     dev_offsets = torch.from_numpy(offs.astype(np.int32)).to(probs.device)
-    return _launch_batched(probs, dev_offsets, n, seed, class_map)
+    return _launch_batched(probs, dev_offsets, n, seed, class_map, rows)
 
 
 sample_inverse_cdf_batched.launches = 0
@@ -235,15 +241,16 @@ sample_inverse_cdf_batched.launches = 0
 
 def _launch_batched(
     probs: torch.Tensor, dev_offsets: torch.Tensor, n: int, seed: int,
-    class_map: torch.Tensor | None,
+    class_map: torch.Tensor | None, rows: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The batched kernel's launch on CUDA ``probs``, given (B+1,) int32
-    ``dev_offsets`` on its device that ``_host_offsets`` has checked; the
-    kernel sizes its grid from ``probs``' rows and indexes by the offsets,
-    so unchecked offsets would read and write out of bounds."""
+    ``dev_offsets`` on its device that ``_host_offsets`` has checked, and
+    the tile's rows from ``_check``; the kernel sizes its grid from
+    ``probs``' rows and indexes by the offsets, so unchecked offsets would
+    read and write out of bounds."""
     total, C = probs.shape
     B = dev_offsets.shape[0] - 1
-    if B + -(-total // _TILE_L) > 65535:
+    if B + -(-total // rows) > 65535:
         raise ValueError(f"B={B} structures of {total} rows exceed the kernel's grid")
     codes = torch.empty((n, total), dtype=code_dtype(C, class_map), device=probs.device)
     counts = torch.empty((B, n, N_COUNTED), dtype=torch.int32, device=probs.device)
@@ -253,7 +260,7 @@ def _launch_batched(
     key0, key1 = _seed_key(seed)
     _on_device(probs.device.index, lambda sms, stream: _lib().sample_inverse_cdf_batched(
         probs.data_ptr(), dev_offsets.data_ptr(), B, _ptr(class_map), codes.data_ptr(),
-        counts.data_ptr(), total, C, n, codes.element_size(), key0, key1, sms, stream))
+        counts.data_ptr(), total, C, n, codes.element_size(), rows, key0, key1, sms, stream))
     sample_inverse_cdf_batched.launches += 1
     return codes, counts
 
@@ -279,9 +286,36 @@ def _num_sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _device_index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
 @functools.cache
-def _smem_bytes(C: int) -> int:
-    return _lib().sample_inverse_cdf_smem_bytes(C)
+def _smem_optin(device: int) -> int:
+    """Bytes of shared memory a block of ``device`` may opt into."""
+    optin = _lib().sample_inverse_cdf_smem_optin(device)
+    if optin < 0:
+        raise RuntimeError(f"cannot read the shared memory of CUDA device {device}")
+    return optin
+
+
+@functools.cache
+def _tile_rows(C: int, device: int) -> int:
+    """Rows of the kernel's tile for C classes on ``device``: 16 while they
+    fit in a block's shared memory, fewer as C grows, 0 past the limit."""
+    return _lib().sample_inverse_cdf_tile_rows(C, _smem_optin(device))
+
+
+def max_classes(device: torch.device | str = "cuda") -> int:
+    """The largest C the kernel takes on the CUDA ``device``: one float64
+    row of the CDF, the counts and the class map in a block's shared memory
+    (25,257 on an H100)."""
+    dev = _device_index(torch.device(device))
+    lo, hi = 1, _smem_optin(dev) // 8  # _tile_rows(lo) >= 1 > _tile_rows(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _tile_rows(mid, dev) else (lo, mid)
+    return lo
 
 
 @functools.cache
@@ -293,15 +327,17 @@ def _lib() -> ctypes.CDLL:
     lib.sample_inverse_cdf.restype = ctypes.c_int
     lib.sample_inverse_cdf.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sample_inverse_cdf_batched.restype = ctypes.c_int
     lib.sample_inverse_cdf_batched.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.sample_inverse_cdf_smem_bytes.restype = ctypes.c_int
-    lib.sample_inverse_cdf_smem_bytes.argtypes = [ctypes.c_int]
+    lib.sample_inverse_cdf_smem_optin.restype = ctypes.c_int
+    lib.sample_inverse_cdf_smem_optin.argtypes = [ctypes.c_int]
+    lib.sample_inverse_cdf_tile_rows.restype = ctypes.c_int
+    lib.sample_inverse_cdf_tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib

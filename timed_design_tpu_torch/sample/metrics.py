@@ -97,3 +97,25 @@ def sequence_metrics(seq: str, ph: float = 7.4) -> tuple[float, float, float, fl
     m = batched_metrics_from_counts(counts, ph=ph)
     return tuple(float(m[k][0]) for k in (
         "charge", "isoelectric_point", "molecular_weight", "molar_extinction_280"))
+
+
+# The names of the reference's ampal functions, one metric each.
+def sequence_charge(seq: str, ph: float = 7.4) -> float:
+    return sequence_metrics(seq, ph)[0]
+
+
+def sequence_isoelectric_point(seq: str) -> float:
+    return sequence_metrics(seq)[1]
+
+
+def sequence_molecular_weight(seq: str) -> float:
+    return sequence_metrics(seq)[2]
+
+
+def sequence_molar_extinction_280(seq: str) -> float:
+    return sequence_metrics(seq)[3]
+
+
+def calculate_seq_metrics(seq: str) -> tuple[float, float, float, float]:
+    """(charge, pI, MW, ext280), as ``sequence_metrics``."""
+    return sequence_metrics(seq)

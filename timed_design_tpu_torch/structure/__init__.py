@@ -1,5 +1,5 @@
 """Structure layer: PDB parsing, geometry (chi angles, rotamer tags,
-superposition) and residue property maps (copies of the parts of
+superposition) and property-constrained design (copies of the parts of
 ``timed_design_tpu/structure`` that the port uses)."""
 from .pdb import (  # noqa: F401
     BACKBONE_ATOMS,
@@ -20,4 +20,11 @@ from .geometry import (  # noqa: F401
     superpose,
     tag_chi_angles,
 )
-from .properties import convert_seq_to_property  # noqa: F401
+from .properties import (  # noqa: F401
+    ACCEPTED_PROPERTIES,
+    PROPERTY_TO_RESIDUE,
+    convert_seq_to_property,
+    create_map_alphanumeric_code,
+    create_residue_map,
+    modify_structure_with_property,
+)

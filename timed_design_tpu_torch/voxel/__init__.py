@@ -2,7 +2,7 @@
 in-memory frame sets of ``td-predict``."""
 from .codec import Codec  # noqa: F401
 from .frames import FrameAtoms, frame_bases, structure_to_frame_atoms  # noqa: F401
-from .voxelize import voxelize_frame_atoms  # noqa: F401
+from .voxelize import voxelize, voxelize_frame_atoms  # noqa: F401
 from .dataset import (  # noqa: F401
     FrameBatchSource,
     FrameSet,
