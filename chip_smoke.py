@@ -72,6 +72,7 @@ from __future__ import annotations
 import gzip
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -2885,6 +2886,293 @@ def check_properties() -> dict:
             "scatter": scatter, "report": report, "phase_s": phase_s}
 
 
+# --------------------------------------------------------------------------
+# HDF5 frame datasets: td-voxelize, td-convert-dataset, td-predict on .hdf5,
+# td-train, through the port's own HDF5 reader and writer (no h5py here)
+
+HDF5_OVERFIT_EPOCHS = 400  # td-train steps of the 1ubq overfit (batch 76)
+
+
+def argmax_rows(out: Path, model: str) -> "np.ndarray":
+    """The argmax per residue of a td-predict run's matrix, as its fasta
+    decodes it (the float16 values)."""
+    import numpy as np
+
+    name = f"{model}_rot.csv" if model.endswith("rotamer") else f"{model}.csv"
+    return np.loadtxt(out / name, delimiter=",", ndmin=2).astype(np.float16).argmax(1)
+
+
+def inflate_pools(tree: Path, entries: list) -> dict:
+    """Frames/s of the tree loader's inflate on the host: the C++ pool
+    (``io/fast_inflate.py::inflate_many``, what the loader runs) against a
+    pool of Python threads over ``zlib.decompress`` (the first design),
+    on the gzip chunks of ``entries``, each into its row of one buffer;
+    median of 5 calls after one."""
+    import statistics
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from timed_design_tpu_torch.io import hdf5
+    from timed_design_tpu_torch.io.fast_inflate import MAX_THREADS, inflate_many
+
+    with hdf5.File(tree) as f:
+        srcs = []
+        for pdb, chain, rid, _ in entries:
+            (c,) = f[pdb][chain][rid].chunk_index()
+            srcs.append(f.read_raw(c.addr, c.size))
+    X = np.empty((len(srcs), 21, 21, 21, 5), np.float32)
+    k = min(MAX_THREADS, os.cpu_count() or 1)
+
+    def python_threads():
+        def worker(start):
+            for i in range(start, len(srcs), k):
+                X[i].reshape(-1).view(np.uint8)[:] = np.frombuffer(
+                    zlib.decompress(srcs[i], 15, X[i].nbytes), np.uint8)
+
+        with ThreadPoolExecutor(k) as pool:
+            for fut in [pool.submit(worker, s) for s in range(k)]:
+                fut.result()
+
+    out = {}
+    for name, fn in (("cpp_pool", lambda: inflate_many(srcs, list(X))),
+                     ("python_threads", python_threads)):
+        fn()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out[name] = len(srcs) / statistics.median(times)
+    log(f"hdf5: inflate of {len(srcs)} tree frames on {k} host threads: C++ pool "
+        f"{out['cpp_pool']:.0f} frames/s, Python threads over zlib "
+        f"{out['python_threads']:.0f} frames/s")
+    return out
+
+
+def check_hdf5() -> dict:
+    """HDF5 frame datasets on the card, through the port's own reader and
+    writer (``io/hdf5.py``; this machine has no h5py). (1) ``td-voxelize``
+    of the td-predict phase's 988 frames (every NMR state) into the tree
+    layout, twice (the first call warms the card up): frames/s, split into
+    voxelization on the card and gzip plus write on the host. (2)
+    ``td-convert-dataset`` to flat float32 and bfloat16; the frames read back
+    from the tree file equal the card's own voxelization (FrameBatchSource)
+    to 2e-5; the loader alone, each layout to the card, frames/s; the C++
+    inflate pool against Python threads over zlib (inflate_pools). (3) ``td-predict`` of TIMED and TIMED_rotamer (registry widths,
+    random weights from a seed, bfloat16, batch 512, ``--is_structure_nmr``)
+    from each layout and with ``--voxelize``: frames/s and the share of the
+    predict phase spent waiting on the loader; the files without a
+    probability byte-equal everywhere; every file byte-equal across the
+    three layouts (bfloat16 frames are the engine's own cast), or within the
+    distance between two runs of one layout; against ``--voxelize``, argmax
+    equal at 99% of the residues at least (its frames differ in the last
+    bits). (4) ``td-predict --quantize int8`` from the flat bfloat16 file:
+    exactly PER_FORWARD int8 launches per batch per model. (5) ``fit`` of
+    registry TIMED in bfloat16 fed by FrameBatchLoader from the tree and the
+    flat bfloat16 file (train_throughput: frames/s, busy share). (6)
+    ``td-train --bf16 --lr_schedule cosine`` from a tree file of 1ubq, an
+    overfit, then ``td-predict`` from its checkpoint on that file: recovery
+    of at least 0.9. No path launches the sampling kernel; only (4) the int8 one."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.cli import convert_dataset, train, voxelize
+    from timed_design_tpu_torch.cli.predict import main as predict_main
+    from timed_design_tpu_torch.io import FrameBatchLoader
+    from timed_design_tpu_torch.io import create_flat_dataset_map as h5_map
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.voxel import FrameBatchSource, create_flat_dataset_map, make_frame_set
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_hdf5_", dir=ROOT))
+    sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+    int8_before = conv3d_int8.launches
+    out: dict = {}
+    try:
+        inputs = work / "in"
+        write_structures(inputs)
+        # (1) td-voxelize
+        vox = {}
+        for tag in ("first", "warm"):
+            t0 = time.perf_counter()
+            path, phases = voxelize.main([str(inputs), "-e", ".pdb*", "-n", f"tree_{tag}", "-o",
+                                          str(work), "--voxelise_all_states"])
+            wall = time.perf_counter() - t0
+            vox[tag] = {"wall_s": wall, "phases_s": phases, "frames_per_s": 988 / wall,
+                        "mb": path.stat().st_size / 1e6}
+            log(f"td-voxelize ({tag}) 988 frames, tree gzip: {wall:.3f} s, "
+                f"{988 / wall:.0f} frames/s; " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                                          phases.items())
+                + f"; {vox[tag]['mb']:.1f} MB; {gpu_name_and_power()}")
+        tree = work / "tree_warm.hdf5"
+        out["td_voxelize"] = vox
+        # (2) td-convert-dataset, and the frames read back
+        files = {"tree": tree}
+        conv = {}
+        for dt in ("float32", "bfloat16"):
+            files[f"flat_{dt}"] = work / f"flat_{dt}.hdf5"
+            t0 = time.perf_counter()
+            convert_dataset.main([str(tree), str(files[f"flat_{dt}"]), "--frame-dtype", dt])
+            conv[dt] = {"wall_s": time.perf_counter() - t0,
+                        "mb": files[f"flat_{dt}"].stat().st_size / 1e6}
+            log(f"td-convert-dataset tree -> flat {dt}: {conv[dt]['wall_s']:.3f} s, "
+                f"{988 / conv[dt]['wall_s']:.0f} frames/s, {conv[dt]['mb']:.1f} MB")
+        out["td_convert_dataset"] = conv
+        dmap, _ = h5_map(tree)
+        fs = make_frame_set(sorted(inputs.glob("*.pdb*")), voxelise_all_states=True)
+        assert create_flat_dataset_map(fs).entries == dmap.entries and len(dmap.entries) == 988
+        err = 0.0
+        for (Xf, yf, nf), (Xs, ys, ns) in zip(FrameBatchLoader(tree, dmap, 512, device="cuda"),
+                                              FrameBatchSource(fs, dmap, 512, device="cuda")):
+            assert nf == ns and (yf == ys).all() and Xf.device.type == "cuda"
+            err = max(err, float((Xf[:nf] - Xs[:ns]).abs().max()))
+        log(f"hdf5: frames read back from the tree file against the card's voxelization: "
+            f"max |d| {err:.3g}")
+        assert err <= 2e-5
+        out["frames_max_abs_err"] = err
+        # the loader alone, each layout to the card (the tree's gzip chunks
+        # inflated by csrc/inflate_pool.cpp): the first pass of a loader (a
+        # tree file's chunk index looked up) and its second
+        alone = {}
+        for name, path in files.items():
+            loader = FrameBatchLoader(path, dmap, 512, device="cuda")
+            for p in ("first", "second"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for X, _, _ in loader:
+                    pass
+                torch.cuda.synchronize()
+                alone[f"{name}_{p}"] = 988 / (time.perf_counter() - t0)
+        log("hdf5: FrameBatchLoader alone to the card, batch 512: " + ", ".join(
+            f"{k} {v:.0f} frames/s" for k, v in alone.items()) + f"; {gpu_name_and_power()}")
+        out["loader_frames_per_s"] = alone
+        out["inflate_frames_per_s"] = inflate_pools(tree, dmap.entries[:512])
+
+        # (3) td-predict from each layout, and with --voxelize
+        def run(model, src, dest, extra=()):
+            argv = ["--path_to_dataset", str(src), "--path_to_model", model,
+                    "--allow-random-weights", "--batch_size", "512", "--compute_dtype",
+                    "bfloat16", "--device", "cuda", "--path_to_output", str(dest),
+                    "--path_to_datasetmap", str(dest / "datasetmap.txt"), "--is_structure_nmr",
+                    *extra]
+            argv += ["--predict_rotamers"] if model.endswith("rotamer") else []
+            result = predict_main(argv)
+            n = check_td_predict_outputs(dest, model, model.endswith("rotamer"), True)
+            t = result.timings
+            return {"frames": n, "predict_frames_per_s": n / t["predict"],
+                    "loader_wait_share": result.loader_wait_s / t["predict"], "timings_s": t}
+
+        predict = {}
+        for model in ("TIMED", "TIMED_rotamer"):
+            runs = {"voxelize": run(model, inputs, work / f"{model}_voxelize", ["--voxelize"])}
+            for name, path in files.items():
+                runs[name] = run(model, path, work / f"{model}_{name}")
+            dirs = {k: work / f"{model}_{k}" for k in runs}
+            names = sorted(p.name for p in dirs["tree"].iterdir())
+            for k, d in dirs.items():
+                assert sorted(p.name for p in d.iterdir()) == names, k
+            structural = PREDICT_STRUCTURAL + (f"{model}.txt", f"{model}_consensus.txt")
+            for name in structural:
+                assert len({(d / name).read_bytes() for d in dirs.values()}) == 1, name
+            unequal = [(k, n) for k in ("flat_float32", "flat_bfloat16") for n in names
+                       if (dirs[k] / n).read_bytes() != (dirs["tree"] / n).read_bytes()]
+            layouts = {"byte_equal": not unequal}
+            if unequal:  # another cuDNN algorithm: hold them to two runs of one layout
+                again = work / f"{model}_tree_again"
+                run(model, tree, again)
+                matrix = f"{model}_rot.csv" if model.endswith("rotamer") else f"{model}.csv"
+                load = lambda d: np.loadtxt(d / matrix, delimiter=",", ndmin=2)  # noqa: E731
+                ref = load(dirs["tree"])
+                noise = float(np.abs(load(again) - ref).max())
+                dist = max(float(np.abs(load(dirs[k]) - ref).max()) for k, _ in unequal)
+                layouts.update(unequal=unequal, max_abs_dp=dist, run_to_run_max_abs_dp=noise)
+                log(f"hdf5 td-predict {model}: layouts differ in {unequal}: max |dp| {dist:.3g} "
+                    f"against two tree runs' {noise:.3g}")
+                assert dist <= noise, "the layouts differ by more than two runs of one layout"
+            vox_argmax, tree_argmax = argmax_rows(dirs["voxelize"], model), argmax_rows(
+                dirs["tree"], model)
+            agree = float((vox_argmax == tree_argmax).mean())
+            layouts["voxelize_fasta_byte_equal"] = all(
+                (dirs["voxelize"] / n).read_bytes() == (dirs["tree"] / n).read_bytes()
+                for n in names if n.endswith(".fasta"))
+            layouts["voxelize_argmax_agreement"] = agree
+            assert agree >= 0.99, f"{model}: argmax agreement {agree:.4f} with --voxelize"
+            predict[model] = {"runs": runs, "layouts": layouts}
+            log(f"hdf5 td-predict {model} bf16, 988 frames, batch 512: " + "; ".join(
+                f"{k} {r['predict_frames_per_s']:.0f} frames/s (loader wait "
+                f"{r['loader_wait_share']:.3f} of predict)" for k, r in runs.items())
+                + f"; layouts byte-equal: {layouts['byte_equal']}; fasta against --voxelize "
+                f"byte-equal: {layouts['voxelize_fasta_byte_equal']} (argmax agreement "
+                f"{agree:.4f}); {gpu_name_and_power()}")
+        out["td_predict"] = predict
+        assert conv3d_int8.launches == int8_before, "an unquantized HDF5 path launched int8"
+
+        # (4) td-predict --quantize int8 from the flat bfloat16 file
+        quant = {}
+        for model in ("TIMED", "TIMED_rotamer"):
+            before = conv3d_int8.launches
+            r = run(model, files["flat_bfloat16"], work / f"{model}_int8", ["--quantize", "int8"])
+            r["launches"] = conv3d_int8.launches - before
+            batches = -(-r["frames"] // 512)
+            log(f"hdf5 td-predict --quantize int8 {model} from the flat bfloat16 file: "
+                f"{r['predict_frames_per_s']:.0f} frames/s, conv3d_int8 launches {r['launches']} "
+                f"({batches} batches)")
+            assert r["launches"] == PER_FORWARD * batches
+            quant[model] = r
+        out["td_predict_int8"] = quant
+        int8_launches = sum(q["launches"] for q in quant.values())
+
+        # (5) fit fed from the files
+        feed = {}
+        for name in ("tree", "flat_bfloat16"):
+            loader = FrameBatchLoader(files[name], dmap, 256, shuffle=True, shuffle_seed=0,
+                                      device="cuda")
+            feed[name] = train_throughput(loader, torch.bfloat16, f"FrameBatchLoader, {name}")
+        out["train_from_file"] = feed
+
+        # (6) td-train: the 1ubq overfit, then td-predict from its checkpoint
+        ubq, _ = voxelize.main([str(inputs / "1ubq.pdb1.gz"), "-n", "ubq", "-o", str(work)])
+        ckpt = work / "overfit.npz"
+        t0 = time.perf_counter()
+        # a cosine schedule: the weights come to rest, so that BatchNorm's
+        # running statistics catch up with them (at a constant 3e-3 they lag
+        # Adam's moves, and evaluation mode recovered 0.789)
+        state = train.main(["--path_to_dataset", str(ubq), "--model", "TIMED", "--bf16",
+                            "--batch_size", "76", "--epochs", str(HDF5_OVERFIT_EPOCHS),
+                            "--learning_rate", "3e-3", "--lr_schedule", "cosine",
+                            "--bn_momentum", "0.9", "--output", str(ckpt)])
+        train_s = time.perf_counter() - t0
+        dest = work / "overfit_predict"
+        predict_main(["--path_to_dataset", str(ubq), "--path_to_model", f"TIMED@{ckpt}",
+                      "--compute_dtype", "bfloat16", "--device", "cuda", "--path_to_output",
+                      str(dest), "--path_to_datasetmap", str(dest / "datasetmap.txt")])
+        check_td_predict_outputs(dest, "TIMED", rotamer=False, nmr=False)
+        designed = (dest / "TIMED.fasta").read_text().splitlines()[1::2]
+        native = (dest / "dataset.fasta").read_text().splitlines()[1::2]
+        recovery = float(np.mean([a == b for d, r in zip(designed, native)
+                                  for a, b in zip(d, r)]))
+        log(f"td-train --bf16 from the tree file of 1ubq: {state.step} steps in {train_s:.1f} s "
+            f"({76 * state.step / train_s:.0f} frames/s with the CLI's set-up); td-predict from "
+            f"its checkpoint: recovery {recovery:.3f}")
+        assert recovery >= 0.9, f"recovery {recovery:.3f} from the td-train checkpoint"
+        out["td_train"] = {"steps": state.step, "wall_s": train_s, "recovery": recovery}
+        launches = sample_inverse_cdf.launches + sample_inverse_cdf_batched.launches
+        assert launches == 0, "an HDF5 path launched the sampling kernel"
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    out["int8_launches"] = int8_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"hdf5: phase passed in {out['phase_s']:.1f} s; launches of the sampling kernel 0, "
+        f"of conv3d_int8 {int8_launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2911,19 +3199,21 @@ def main() -> int:
     train = check_train()
     assert conv3d_int8.launches == 0, "an unquantized path launched the int8 kernel"
     quantize = check_quantize()
+    hdf5 = check_hdf5()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
                     "td_predict": td_predict, "analyse": analyse, "properties": properties,
-                    "train": train, "quantize": quantize}))
+                    "train": train, "quantize": quantize, "hdf5": hdf5}))
     main_shape = kernel["shapes"][0]
     # TIMED's 64 -> 128 block: the largest of its int8 convolutions
     conv_main = quantize["kernel"]["per_shape"][3]
-    # td-predict and training reach no TPU kernel (voxelizer and convs are
-    # plain torch); the analysis reaches the sampler through its sweep, and
-    # property-constrained design through each design's samples
+    # td-predict, training and the HDF5 flow reach no TPU kernel (voxelizer
+    # and convs are plain torch); the analysis reaches the sampler through its
+    # sweep, and property-constrained design through each design's samples
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
                 "families": families["launches"], "td_predict": td_predict["launches"],
                 "analyse": analyse["launches"], "properties": properties["launches"],
-                "train": train["launches"]}
+                "train": train["launches"], "hdf5": hdf5["launches"]}
+    int8_launches = {**quantize["launches"], "hdf5": hdf5["int8_launches"]}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",
@@ -2950,8 +3240,8 @@ def main() -> int:
         "source": "timed_design_tpu_torch/csrc/conv3d_int8.cu",
         # no Pallas kernel: the counterpart of XLA's int8 conv_general_dilated
         "replaces": "timed_design_tpu/models/quantize.py:125",
-        "launches": sum(quantize["launches"].values()),
-        "launches_by_path": quantize["launches"],
+        "launches": sum(int8_launches.values()),
+        "launches_by_path": int8_launches,
         "max_abs_err": quantize["kernel"]["max_abs_err"],
         "ms": conv_main["ms"],
         "plain_ms": conv_main["plain_ms"],

@@ -587,6 +587,82 @@ def test_stale_datasetmap_is_regenerated(tmp_path, structures, ckpts):
     assert (out / "encoded_labels.csv").read_text().count("\n") == 41
 
 
+@pytest.fixture(scope="module")
+def jax_flat(tmp_path_factory, jax_hdf5):
+    """The JAX package's convert_to_flat of its dataset.hdf5 (first state)."""
+    from timed_design_tpu.io.h5frames import convert_to_flat
+
+    return convert_to_flat(jax_hdf5[False], tmp_path_factory.mktemp("torch_predict_flat") / "f.hdf5")
+
+
+H5_E2E = {
+    "tree_ensemble_20": (False, ["TIMED", "ProDCoNN"], ["--ensemble"]),
+    "tree_rotamer": (False, ["TIMED_rotamer"], ["--predict_rotamers"]),
+    "nmr_consensus": (True, ["TIMED_rotamer"], ["--predict_rotamers", "--is_structure_nmr"]),
+    "flat_rotamer": ("flat", ["TIMED_rotamer"], ["--predict_rotamers"]),
+}
+
+
+@pytest.mark.parametrize("run", list(H5_E2E))
+def test_td_predict_hdf5_matches_jax(tmp_path, jax_hdf5, jax_flat, ckpts, run):
+    """JAX ``td-predict`` on an HDF5 dataset against the port's on the same
+    file, float32, batch 32: the JAX package's dataset.hdf5 of the fixture
+    directory (tree layout; every NMR state for the consensus) and its flat
+    conversion."""
+    which, models, flags = H5_E2E[run]
+    path = jax_flat if which == "flat" else jax_hdf5[which]
+    argv = ["--path_to_dataset", str(path), "--batch_size", str(BATCH), "--path_to_model",
+            *[ckpts[m] for m in models], *flags]
+    _run_jax(argv, tmp_path / "jax")
+    _run_port(argv, tmp_path / "port")
+    _compare_runs(tmp_path / "jax", tmp_path / "port", rotamer="--predict_rotamers" in flags)
+
+
+def test_bf16_flat_file_equals_the_wire_cast(tmp_path, jax_hdf5, ckpts):
+    """``--compute_dtype bfloat16`` on the tree file and on its bfloat16 flat
+    conversion (frames rounded to bfloat16 once, on the host, as the engine
+    rounds float32 frames on the device): every file byte-equal."""
+    from timed_design_tpu_torch.io import convert_to_flat
+
+    flat = convert_to_flat(jax_hdf5[False], tmp_path / "bf16.hdf5", frame_dtype="bfloat16")
+    for name, path in (("tree", jax_hdf5[False]), ("flat", flat)):
+        _run_port(["--path_to_dataset", str(path), "--batch_size", str(BATCH),
+                   "--compute_dtype", "bfloat16", "--path_to_model", ckpts["TIMED_rotamer"],
+                   "--predict_rotamers"], tmp_path / name)
+    files = sorted(p.name for p in (tmp_path / "tree").iterdir())
+    assert files == sorted(p.name for p in (tmp_path / "flat").iterdir())
+    for name in files:
+        assert (tmp_path / "flat" / name).read_bytes() == (tmp_path / "tree" / name).read_bytes()
+
+
+@pytest.mark.parametrize("layout", ["tree", "flat"])
+def test_stale_datasetmap_is_regenerated_hdf5(tmp_path, jax_hdf5, jax_flat, ckpts, layout):
+    """On an HDF5 dataset the JAX package's check decides: a map naming a
+    residue the file lacks is regenerated; a map of a subset of the file's
+    rows is followed, its rows read by key."""
+    from timed_design_tpu_torch.io import load_datasetmap
+
+    path = jax_flat if layout == "flat" else jax_hdf5[False]
+    argv = ["--path_to_dataset", str(path), "--batch_size", str(BATCH),
+            "--path_to_model", ckpts["TIMED"]]
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "datasetmap.txt").write_text("9zzz,A,1,ALA\n")
+    _run_port(argv, out)
+    full = (out / "datasetmap.txt").read_text().splitlines()
+    assert len(load_datasetmap(out / "datasetmap.txt", is_old=True).entries) == 138
+    subset = full[40:76] + full[:5]
+    (out / "datasetmap.txt").write_text("\n".join(subset) + "\n")
+    _run_port(argv, out)
+    assert (out / "datasetmap.txt").read_text().splitlines() == subset
+    assert (out / "encoded_labels.csv").read_text().count("\n") == 41
+    fresh = tmp_path / "fresh"
+    _run_port(argv, fresh)
+    rows = {l: i for i, l in enumerate(full)}
+    want = _csv(fresh / "TIMED.csv")[[rows[l] for l in subset]]
+    np.testing.assert_array_equal(_csv(out / "TIMED.csv"), want)
+
+
 def test_profile_writes_a_trace(tmp_path, structures, ckpts):
     """--profile DIR writes a torch.profiler chrome trace there."""
     import json
@@ -601,7 +677,8 @@ def test_profile_writes_a_trace(tmp_path, structures, ckpts):
 
 # flag -> (argv, the message it exits with; None: ported, so it runs)
 REFUSALS = {
-    "hdf5": (["--path_to_dataset", "x.hdf5", "--voxelize"], "td-predict on HDF5 datasets"),
+    "hdf5": ([], None),
+    "hdf5_voxelize": (["--path_to_dataset", "x.hdf5", "--voxelize"], "read as it is"),
     "no_voxelize": (["--path_to_dataset", "x.pdb"], "--voxelize is required"),
     "quantize": (["--voxelize", "--quantize", "w8"], None),
     "report": (["--voxelize", "--path_to_dataset", "x.pdb", "--report"], None),
@@ -610,17 +687,19 @@ REFUSALS = {
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_refusals(case, tmp_path, structures, ckpts):
-    """What the port does not take exits with a message that names its
-    ROADMAP item; ``--quantize``, ``--report`` and ``--output_analysis``,
-    ported, run (``--quantize w8 --device cpu`` on a small checkpoint; the
-    design report of ``--report``, named after the model; the analysis
-    graphs of ``--output_analysis``, one set per chain)."""
+def test_refusals(case, tmp_path, structures, ckpts, jax_hdf5):
+    """What the port does not take exits with a message; an HDF5 dataset,
+    ``--quantize``, ``--report`` and ``--output_analysis``, ported, run (the
+    JAX package's dataset.hdf5 of the fixture directory; ``--quantize w8
+    --device cpu`` on a small checkpoint; the design report of ``--report``,
+    named after the model; the analysis graphs of ``--output_analysis``, one
+    set per chain)."""
     from timed_design_tpu_torch.cli.predict import main
 
     argv, message = REFUSALS[case]
     if message is None:
-        argv = argv + ["--path_to_dataset", str(structures / "b" / "Ains.pdb"),
+        dataset = jax_hdf5[False] if case == "hdf5" else structures / "b" / "Ains.pdb"
+        argv = argv + ["--path_to_dataset", str(dataset),
                        "--batch_size", str(BATCH), "--path_to_model", ckpts["TIMED"]]
         _run_port(argv, tmp_path)
         assert len(_fasta(tmp_path / "TIMED.fasta")[">AinsA"]) == 12

@@ -580,6 +580,70 @@ def test_warm_start_errors_name_the_leaf():
             np.testing.assert_array_equal(_leaves(mine[part])[k], w, err_msg=k)
 
 
+# ------------------------------------------------------------ td-train
+
+def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
+    """``td-train`` in both packages on the JAX package's HDF5 file of 1ubq:
+    TIMED at widths (8, 16) from one warm-start checkpoint, float32, batch
+    32, two shuffled epochs from seed 0 (six steps, two padded batches cut
+    to their 12 rows), dropout off on both sides, JAX on a one-device mesh
+    (on eight, the padded batch would be filled to 16 rows with repeats).
+    The checkpoints: parameters within 2 * lr * steps (Adam moves an element
+    whose gradient is rounding noise by +-lr a step: the convolution biases
+    ahead of a BatchNorm, whose true gradient is 0, most); the running means
+    to the same bound (a batch mean carries its convolution's bias one for
+    one); the running variances within 1e-4; the step 0 loss equal to 4
+    places."""
+    import importlib
+
+    import timed_design_tpu.train.train as jax_train
+    from timed_design_tpu.cli.train import main as jax_main
+    from timed_design_tpu.parallel import make_mesh
+    from timed_design_tpu.voxel import make_frame_dataset
+
+    from timed_design_tpu_torch.cli.train import main
+    from timed_design_tpu_torch.train import load_checkpoint_params
+
+    # the modules, not the ``timed`` functions their packages export
+    for pkg in ("timed_design_tpu", "timed_design_tpu_torch"):
+        monkeypatch.setattr(importlib.import_module(f"{pkg}.models.timed"), "spatial_dropout_3d",
+                            lambda x, *a, **k: x)
+    monkeypatch.setattr(jax_train, "make_mesh", lambda: make_mesh(n_data=1))
+    data = make_frame_dataset([ubq_pdb_gz], tmp_path / "ubq.hdf5")
+    init = _save_variables(tmp_path / "init.npz",
+                           _variables(_jax_module("TIMED", bn_momentum=0.9), seed=21))
+    lr, steps = 1e-3, 6
+    argv = ["--path_to_dataset", str(data), "--model", "TIMED", "--filters", "8,16",
+            "--batch_size", "32", "--epochs", "2", "--learning_rate", str(lr),
+            "--bn_momentum", "0.9", "--init_from", str(init)]
+    capsys.readouterr()
+    jax_main(argv + ["--output", str(tmp_path / "jax.npz")])
+    jax_out = capsys.readouterr().out
+    main(argv + ["--output", str(tmp_path / "port.npz"), "--device", "cpu"])
+    port_out = capsys.readouterr().out
+    assert f"after {steps} steps" in jax_out and f"after {steps} steps" in port_out
+    loss = [re.search(r"step 0: loss=(\S+)", o).group(1) for o in (jax_out, port_out)]
+    assert loss[0] == loss[1]
+    want, got = (load_checkpoint_params(tmp_path / n) for n in ("jax.npz", "port.npz"))
+    for part in ("params", "batch_stats"):
+        w, g = _leaves(want[part]), _leaves(got[part])
+        assert w.keys() == g.keys()
+        for k in w:
+            tol = 1e-4 if k.endswith("/var") else 2 * lr * steps
+            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=tol, err_msg=f"{part}/{k}")
+    assert not np.allclose(_leaves(got["params"])["Conv_0/kernel"],
+                           _leaves(load_checkpoint_params(init)["params"])["Conv_0/kernel"])
+
+
+def _save_variables(path, variables):
+    import types
+
+    from timed_design_tpu.train.train import save_checkpoint
+
+    save_checkpoint(types.SimpleNamespace(**variables), path, build_kwargs={"filters": (8, 16)})
+    return path
+
+
 # ------------------------------------------------------------- checkpoints
 
 @pytest.mark.parametrize("writer", ["port", "jax"])

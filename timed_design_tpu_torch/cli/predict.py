@@ -1,12 +1,18 @@
-"""Predict sequences from PDB files on PyTorch (the port of ``td-predict
---voxelize``).
+"""Predict sequences on PyTorch (the port of ``td-predict``), from an HDF5
+frame dataset or from PDB files:
 
+    python -m timed_design_tpu_torch.cli.predict \\
+        --path_to_dataset frames.hdf5 --path_to_model TIMED@ckpt.npz \\
+        --path_to_output out/
     python -m timed_design_tpu_torch.cli.predict --voxelize \\
         --path_to_dataset structures/ --path_to_model TIMED@ckpt.npz \\
         --path_to_output out/
 
-PDB file(s) -> parse -> frame atoms -> frames voxelized on the device batch
-by batch -> every model on each batch -> the JAX package's artifacts:
+An ``.hdf5``/``.h5`` dataset (tree or flat layout, as ``td-voxelize``,
+``td-convert-dataset`` or aposteriori write it) is read in batches on the
+host; PDB file(s) with ``--voxelize`` are parsed and their frames voxelized
+on the device batch by batch. Every model runs on each batch, and the run
+writes the JAX package's artifacts:
 ``{model}.csv`` (``{model}_rot.csv`` too with ``--predict_rotamers``),
 ``{model}.fasta``, the SRB map ``{model}.txt``, ``dataset.fasta``,
 ``encoded_labels.csv``, the per-residue ``datasetmap.txt``, with
@@ -16,12 +22,12 @@ design report ``{model}_report.html`` (``report.py``), and with
 ``--output_analysis`` each chain's probability heatmap, mean/variance
 histograms and sequence logo. ``--report`` and ``--output_analysis`` draw
 with matplotlib: where it is missing they exit with a message that names it
-before the models load. No HDF5 file is written or read.
+before the models load. ``--voxelize`` writes no HDF5 file.
 
 The flags of ``timed_design_tpu/cli/predict.py`` plus ``--device`` (default
 ``cuda``; without a card it exits with a message, and runs on the CPU only
-with ``--device cpu``). ``--voxelize`` is required. ``--quantize`` runs
-every convolution in a mode of ``models/quantize.py``.
+with ``--device cpu``). ``--quantize`` runs every convolution in a mode of
+``models/quantize.py``.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=512,
                    help="Frames per device step (default: 512)")
     p.add_argument("--path_to_dataset", type=str, required=True,
-                   help="A PDB file or a directory of them (with --voxelize)")
+                   help="An .hdf5 frame dataset, or a PDB file or a directory of "
+                        "them with --voxelize")
     p.add_argument("--path_to_datasetmap", type=str, default="datasetmap.txt")
     p.add_argument("--path_to_model", type=str, nargs="+", required=True,
                    help="Registry name(s) or Name@checkpoint.npz: TIMED, ProDCoNN, ...")
@@ -54,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--start_batch", type=int, default=0,
                    help="Resume from this batch index")
     p.add_argument("--voxelize", action="store_true",
-                   help="Input is PDB file(s), voxelized on the device (required)")
+                   help="Input is PDB file(s), voxelized on the device")
     p.add_argument("--codec", type=str, default="CNOCACB")
     p.add_argument("--output_analysis", action="store_true",
                    help="Per-chain graphs (probability heatmap, mean/variance "
@@ -94,13 +101,13 @@ def main(argv=None):
     """Run td-predict; returns the engine's PredictionResult."""
     args = build_parser().parse_args(argv)
     dataset_path = Path(args.path_to_dataset)
-    if dataset_path.suffix.lower() in (".hdf5", ".h5"):
-        raise SystemExit(
-            f"{dataset_path}: HDF5 frame datasets are not read by the PyTorch package "
-            "(ROADMAP, waiting: td-predict on HDF5 datasets); give PDB files with --voxelize")
-    if not args.voxelize:
-        raise SystemExit("--voxelize is required: the PyTorch package predicts from PDB "
-                         "files, voxelized on the device")
+    is_hdf5 = dataset_path.suffix.lower() in (".hdf5", ".h5")
+    if is_hdf5 and args.voxelize:
+        raise SystemExit(f"{dataset_path} is an HDF5 frame dataset, read as it is: "
+                         "--voxelize takes PDB files")
+    if not is_hdf5 and not args.voxelize:
+        raise SystemExit("--voxelize is required for PDB input (the frames are voxelized "
+                         "on the device), or give an .hdf5 frame dataset")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; "
                          "pass --device cpu to predict on the CPU")
@@ -126,13 +133,17 @@ def main(argv=None):
     from ..engine import load_dataset_and_predict
     from ..voxel import make_frame_set
 
-    pdbs = sorted(dataset_path.glob("**/*.pdb*")) if dataset_path.is_dir() else [dataset_path]
-    t0 = time.perf_counter()
-    # NMR consensus needs every state as a structure <pdb>_<i>
-    frame_set = make_frame_set(pdbs, codec=args.codec,
-                               voxelise_all_states=args.is_structure_nmr)
-    print(f"Read {len(pdbs)} structure file(s) in {time.perf_counter() - t0:.2f}s; "
-          f"frames are voxelized on {args.device}, batch by batch")
+    if is_hdf5:
+        dataset = dataset_path
+        print(f"Reading frames from {dataset_path}")
+    else:
+        pdbs = sorted(dataset_path.glob("**/*.pdb*")) if dataset_path.is_dir() else [dataset_path]
+        t0 = time.perf_counter()
+        # NMR consensus needs every state as a structure <pdb>_<i>
+        dataset = make_frame_set(pdbs, codec=args.codec,
+                                 voxelise_all_states=args.is_structure_nmr)
+        print(f"Read {len(pdbs)} structure file(s) in {time.perf_counter() - t0:.2f}s; "
+              f"frames are voxelized on {args.device}, batch by batch")
 
     profile_cm = contextlib.nullcontext()
     if args.profile:
@@ -145,7 +156,7 @@ def main(argv=None):
     with profile_cm as prof:
         result = load_dataset_and_predict(
             cfg.path_to_model,
-            frame_set,
+            dataset,
             batch_size=cfg.batch_size,
             start_batch=cfg.start_batch,
             dataset_map_path=cfg.path_to_datasetmap,
@@ -168,6 +179,7 @@ def main(argv=None):
           f"across {len(result.pdb_to_sequence)} chains.")
     for phase, secs in result.timings.items():
         print(f"  {phase}: {secs:.2f}s")
+    print(f"  waiting on the loader: {result.loader_wait_s:.2f}s of predict")
     if args.report:
         from ..report import write_design_report
 

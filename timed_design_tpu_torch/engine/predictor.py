@@ -6,7 +6,8 @@ is fixed (the last one is padded); up to ``max_in_flight`` batches are
 queued on the device before the oldest result is fetched, each result
 copied once into a pinned host buffer. ``load_dataset_and_predict`` takes
 its frames from an in-memory ``FrameSet`` (PDB files, voxelized on the
-device batch by batch), not from an HDF5 file.
+device batch by batch) or from an HDF5 frame dataset, tree or flat layout
+(``io/h5frames.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import dataclasses
 import queue
 import sys
 import threading
+import time
 import typing as t
 from pathlib import Path
 
@@ -25,6 +27,8 @@ from torch import nn
 from ..constants import ROTAMER_CATEGORIES, ROTAMER_TO_AA_ONEHOT
 from ..io import (
     DatasetMap,
+    FrameBatchLoader,
+    hdf5,
     extract_sequences,
     get_pdb_keys_to_filter,
     load_datasetmap,
@@ -36,6 +40,8 @@ from ..io import (
     write_int_csv,
     write_prediction_rows,
 )
+from ..io.h5frames import _index_columns, _is_flat_layout
+from ..io.h5frames import create_flat_dataset_map as h5_dataset_map
 from ..models import (
     ModelSpec,
     get_model_spec,
@@ -196,6 +202,8 @@ class PredictionResult:
     pdb_to_consensus: dict[str, str] | None
     pdb_to_consensus_prob: dict[str, np.ndarray] | None
     timings: dict[str, float] = dataclasses.field(default_factory=dict)
+    # of the predict phase, the seconds the loop waited for the next batch
+    loader_wait_s: float = 0.0
 
 
 def _datasetmap_matches_frames(dmap: DatasetMap, frame_set: FrameSet) -> bool:
@@ -207,9 +215,32 @@ def _datasetmap_matches_frames(dmap: DatasetMap, frame_set: FrameSet) -> bool:
         (pdb, chain, rid) in frame_set.index for pdb, chain, rid, _ in dmap.entries)
 
 
+def _datasetmap_matches_dataset(dmap: DatasetMap, dataset_path: Path) -> bool:
+    """Does a loaded map describe this HDF5 dataset? The JAX package's check:
+    flat layout, the row count and the first and last rows' keys (or, for a
+    map of fewer rows, as a blacklist-filtered one is, the first and last
+    entries among the rows); tree layout, the first and last entries'
+    datasets exist."""
+    if not dmap.entries:
+        return False
+    ends = [dmap.entries[0][:3], dmap.entries[-1][:3]]
+    try:
+        with hdf5.File(dataset_path) as f:
+            if _is_flat_layout(f):
+                rows = list(zip(*_index_columns(f, ("index_pdb", "index_chain",
+                                                     "index_residue"))))
+                if len(rows) == len(dmap.entries):
+                    return [rows[0], rows[-1]] == ends
+                keys = set(rows)
+                return all(k in keys for k in ends)
+            return all(f"{pdb}/{chain}/{rid}" in f for pdb, chain, rid in ends)
+    except (OSError, ValueError):
+        return False
+
+
 def load_dataset_and_predict(
     models: list,
-    frame_set: FrameSet,
+    dataset: FrameSet | Path | str,
     batch_size: int = 512,
     start_batch: int = 0,
     dataset_map_path: Path = Path("datasetmap.txt"),
@@ -223,12 +254,15 @@ def load_dataset_and_predict(
     ensemble: bool = False,
     quantize: str | None = None,
 ) -> PredictionResult:
-    """Run every model over the frame set and write the JAX package's
-    artifact set into ``path_to_output`` (default: the working directory).
+    """Run every model over ``dataset`` and write the JAX package's artifact
+    set into ``path_to_output`` (default: the working directory).
 
-    Each batch is voxelized on ``device`` once and every model runs on that
-    one device batch. Per model: ``{model}.csv`` (float16), or in rotamer
-    mode ``{model}_rot.csv`` (the 338-class matrix, full precision) and the
+    ``dataset``: a ``FrameSet``, each batch voxelized on ``device``; or the
+    path of an HDF5 frame dataset (tree or flat layout, float32 or bfloat16
+    frames), read by ``FrameBatchLoader``, whose batches reach a card
+    through reused pinned buffers. Every model runs on the one device
+    batch. Per model: ``{model}.csv`` (float16), or in rotamer mode
+    ``{model}_rot.csv`` (the 338-class matrix, full precision) and the
     argmax-collapsed one-hot ``{model}.csv`` (float16); the SRB map
     ``{model}.txt``; ``{model}.fasta`` decoded from the matrix cast to
     float16 (argmax ties break as a reader of the CSV would); with
@@ -236,10 +270,12 @@ def load_dataset_and_predict(
     ``encoded_labels.csv``, ``dataset.fasta`` and the per-residue map.
 
     The map: ``dataset_map_path`` when it exists (or exists under
-    ``path_to_output``), is per-residue and names only frames of this set;
+    ``path_to_output``), is per-residue and describes this dataset (every
+    entry a frame of the set; for an HDF5 file, the JAX package's check);
     else made in the JAX package's row order (``create_flat_dataset_map``,
     blacklisted codes removed with a warning) and saved under the requested
-    file name in ``path_to_output``. Batches follow the map.
+    file name in ``path_to_output``. Batches follow the map. The result's
+    ``loader_wait_s`` is the time the loop waited for the next batch.
 
     ``start_batch`` resumes: the CSVs are appended from that batch on, then
     read back whole for decoding, and the one-hot ``{model}.csv`` is
@@ -253,6 +289,7 @@ def load_dataset_and_predict(
     path_to_output = Path.cwd() if path_to_output is None else Path(path_to_output)
     device = torch.device(device) if device is not None else default_device()
     filter_list = get_pdb_keys_to_filter(blacklist) if blacklist else []
+    from_frames = isinstance(dataset, FrameSet)
 
     with timer.phase("datasetmap"):
         dataset_map_path = Path(dataset_map_path)
@@ -274,12 +311,19 @@ def load_dataset_and_predict(
                     "dataset_map_path elsewhere."
                 )
             dmap = load_datasetmap(dataset_map_path, is_old=True)
-            if not _datasetmap_matches_frames(dmap, frame_set):
-                print(f"# {dataset_map_path} does not match the input structures "
+            if not (_datasetmap_matches_frames(dmap, dataset) if from_frames
+                    else _datasetmap_matches_dataset(dmap, Path(dataset))):
+                print(f"# {dataset_map_path} does not match the input "
+                      f"{'structures' if from_frames else dataset} "
                       "(stale map from another dataset?) — regenerating")
                 dmap = None
         if dmap is None:
-            dmap = create_flat_dataset_map(frame_set, filter_list, remove_blacklist_silently=True)
+            if from_frames:
+                dmap = create_flat_dataset_map(dataset, filter_list,
+                                               remove_blacklist_silently=True)
+            else:
+                dmap, _ = h5_dataset_map(Path(dataset), filter_list,
+                                         remove_blacklist_silently=True)
             save_datasetmap(dmap, path_to_output / dataset_map_path.name)
 
     if not models:
@@ -320,8 +364,13 @@ def load_dataset_and_predict(
             )
 
     resuming = start_batch > 0
-    source = FrameBatchSource(frame_set, dmap, predictors[0].batch_size, start_batch,
-                              device=device)
+    loader_wait = 0.0
+    if from_frames:
+        source = FrameBatchSource(dataset, dmap, predictors[0].batch_size, start_batch,
+                                  device=device)
+    else:
+        source = FrameBatchLoader(Path(dataset), dmap, predictors[0].batch_size, start_batch,
+                                  device=device)
     # host memory: each model's float16 decode matrix, plus one float64
     # running sum with ensemble; the probability CSVs stream to disk
     n_models = len(predictors)
@@ -410,7 +459,14 @@ def load_dataset_and_predict(
                 write_q.put((outs_np, y, n))
 
             try:
-                for X, y, n_valid in source:
+                batches = iter(source)
+                while True:
+                    t_wait = time.perf_counter()
+                    batch = next(batches, None)
+                    loader_wait += time.perf_counter() - t_wait
+                    if batch is None:
+                        break
+                    X, y, n_valid = batch
                     x_dev = predictors[0].to_device(X)
                     pending.append(([p.run_device_batch(x_dev) for p in predictors], y, n_valid))
                     if len(pending) >= max_in_flight:
@@ -484,12 +540,14 @@ def load_dataset_and_predict(
             # the read-back matrices are the whole run's
             m = np.asarray(full_probs, dtype=np.float64)
             ens_sum = m if ens_sum is None else ens_sum + m
-        result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary())
+        result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary(),
+                                  loader_wait_s=loader_wait)
 
     if ensemble:
         decoded, _ = _emit_outputs(ens_sum / n_models, "ensemble", read_back=False,
                                    write_csv=True)
-        result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary())
+        result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary(),
+                                  loader_wait_s=loader_wait)
     return result
 
 

@@ -25,6 +25,10 @@ class DatasetMap:
     entries: list[tuple[str, str, str, str]] | None = None
     # new format: [(pdb_chain, count)]
     counts: list[tuple[str, int]] | None = None
+    # the resolved path of the flat HDF5 dataset whose rows these entries
+    # are, in order (set by io/h5frames.py::create_flat_dataset_map): the
+    # loader then reads rows by position, with no lookup by key
+    row_identity_for: str | None = None
 
     @property
     def is_old(self) -> bool:

@@ -1,6 +1,7 @@
-"""Typed configuration of ``td-predict``: the port's copy of
-``PredictConfig`` from ``timed_design_tpu/utils/config.py``. The CLI builds
-it from its flags; ``validate`` checks the paths and the batch size."""
+"""Typed configuration of ``td-predict`` and ``td-voxelize``: the port's
+copies of ``PredictConfig`` and ``VoxelizeConfig`` from
+``timed_design_tpu/utils/config.py``. The CLIs build them from their flags;
+``PredictConfig.validate`` checks the paths and the batch size."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,3 +28,15 @@ class PredictConfig:
         if self.batch_size <= 0:
             raise ValueError(f"Batch size must be > 0, got {self.batch_size}")
         return self
+
+
+@dataclasses.dataclass
+class VoxelizeConfig:
+    structure_paths: list[Path]
+    output_path: Path = Path("dataset.hdf5")
+    codec: str = "CNOCACB"
+    voxels_per_side: int = 21
+    frame_edge_length: float = 21.0
+    gaussian: bool = True
+    encode_cb: bool = True
+    voxelise_all_states: bool = False

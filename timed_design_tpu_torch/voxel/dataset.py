@@ -1,12 +1,16 @@
-"""In-memory frame sets: the frames of ``td-predict`` and of training,
-straight from PDB files to the device, with no HDF5 file.
+"""Frame datasets: the HDF5 writer of ``td-voxelize``, and the in-memory
+frame sets of ``td-predict --voxelize`` and training.
 
-The counterpart of ``timed_design_tpu/voxel/dataset.py`` without its HDF5
-writer, and of what ``timed_design_tpu/io/h5frames.py`` reads back:
-``create_flat_dataset_map`` and ``FrameBatchLoader``. A ``FrameSet`` holds
-the frame atoms of every structure (every NMR state with
-``voxelise_all_states``) on the host, and as flat tables on the device;
-``FrameBatchSource`` voxelizes the rows of each batch there in one call.
+``make_frame_dataset`` is the port of ``timed_design_tpu/voxel/dataset.py``'s
+writer: PDB files voxelized on a device into an aposteriori-schema HDF5 file
+(tree layout) or the flat layout, through the port's own HDF5 writer
+(``io/hdf5.py``). ``io/h5frames.py`` reads such files back.
+
+A ``FrameSet`` holds the frame atoms of every structure (every NMR state
+with ``voxelise_all_states``) on the host, and as flat tables on the device;
+``FrameBatchSource`` voxelizes the rows of each batch there in one call: the
+counterpart of ``io/h5frames.py``'s ``create_flat_dataset_map`` and
+``FrameBatchLoader`` with no file in between.
 
 Row order is the JAX package's. Its map comes from iterating the HDF5 tree,
 and HDF5 lists group names in byte order: structures by name, chains by id,
@@ -26,9 +30,12 @@ import numpy as np
 import torch
 
 from ..constants import AA3, AA3_TO_INT, UNCOMMON_RESIDUE_DICT
+from ..io import hdf5
 from ..io.datasetmap import DatasetMap, _residue_sort_key
+from ..io.h5frames import bf16_bits
 from ..ops.matmul_voxelize import voxelize_matmul
 from ..structure import Structure, load_pdb
+from ..utils.timing import PhaseTimer
 from .codec import Codec
 from .frames import FrameAtoms, structure_to_frame_atoms
 from .voxelize import voxelize_frame_atoms
@@ -52,6 +59,140 @@ def voxelize_structure(
         frame_edge_length=frame_edge_length, gaussian=gaussian, device=device,
     )
     return frames, fa
+
+
+# the version attribute: aposteriori's major version 2, so that its gate
+# (and FrameDatasetMetadata's) accepts the file
+FRAME_DATASET_VER = "2.0.0-tpu"
+
+
+def make_frame_dataset(
+    structure_paths: t.Sequence[Path],
+    output_path: Path,
+    codec: Codec | str = "CNOCACB",
+    voxels_per_side: int = 21,
+    frame_edge_length: float = 21.0,
+    gaussian: bool = True,
+    encode_cb: bool = True,
+    voxelise_all_states: bool = False,
+    compression: bool | None = None,
+    atom_filter: str = "backbone",
+    layout: str = "tree",
+    chunk_rows: int = 512,
+    frame_dtype: str = "float32",
+    *,
+    device: torch.device | str,
+    timer: PhaseTimer | None = None,
+) -> Path:
+    """Voxelize PDB files on ``device`` into an HDF5 frame dataset, the file
+    the JAX package's ``make_frame_dataset`` writes for the same arguments.
+
+    ``layout='tree'``: aposteriori's ``/<pdb>/<chain>/<residue>`` datasets,
+    one gzipped chunk a frame, with ``label`` and ``encoded_residue``
+    attributes. ``layout='flat'``: ``/frames`` in rows of ``chunk_rows``
+    (float32, or with ``frame_dtype='bfloat16'`` bfloat16 bits in uint16),
+    ``/labels`` and the ``/index_*`` columns. ``compression=None`` is gzip
+    for the tree and none for the flat layout. ``voxelise_all_states``
+    keeps every NMR state as ``<pdb>_<state>``, the states aligned on the
+    residues valid in all of them. ``timer`` gets the phases ``parse``,
+    ``voxelize`` (the device's work and the copy to the host) and ``write``
+    (gzip and the file)."""
+    if isinstance(codec, str):
+        codec = Codec.from_string(codec)
+    if layout not in ("tree", "flat"):
+        raise ValueError(f"layout must be 'tree' or 'flat', got {layout!r}")
+    if frame_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"frame_dtype must be 'float32' or 'bfloat16', got {frame_dtype!r}")
+    if frame_dtype != "float32" and layout != "flat":
+        raise ValueError(
+            "frame_dtype='bfloat16' requires layout='flat' (the tree schema "
+            "is the aposteriori interop format and stays float-exact)"
+        )
+    timer = timer if timer is not None else PhaseTimer()
+    device = torch.device(device)
+    output_path = Path(output_path)
+    if compression is None:
+        compression = layout == "tree"
+    dims = (voxels_per_side,) * 3 + (codec.n_channels,)
+    with hdf5.Writer(output_path) as f:
+        f.attrs["make_frame_dataset_ver"] = FRAME_DATASET_VER
+        f.attrs["frame_dims"] = dims
+        f.attrs["atom_encoder"] = list(codec.channels)
+        f.attrs["encode_cb"] = bool(encode_cb)
+        f.attrs["atom_filter_fn"] = atom_filter
+        f.attrs["residue_encoder"] = list(AA3)
+        f.attrs["frame_edge_length"] = float(frame_edge_length)
+        f.attrs["voxels_as_gaussian"] = bool(gaussian)
+        if layout == "flat":
+            f.attrs["layout"] = "flat"
+            if frame_dtype == "bfloat16":
+                f.attrs["frame_dtype"] = "bfloat16"
+            writer = _FlatWriter(f, dims, chunk_rows, compression, frame_dtype)
+        for path in structure_paths:
+            with timer.phase("parse"):
+                states = load_pdb(Path(path), all_states=voxelise_all_states)
+                if not isinstance(states, list):
+                    states = [states]
+                fas = [structure_to_frame_atoms(s, codec, encode_cb=encode_cb,
+                                                atom_filter=atom_filter) for s in states]
+                if len(fas) > 1:
+                    fas = _align_states(fas, name=states[0].name)
+            for s, fa in zip(states, fas):
+                with timer.phase("voxelize"):
+                    frames = voxelize_frame_atoms(
+                        fa, codec, voxels_per_side=voxels_per_side,
+                        frame_edge_length=frame_edge_length, gaussian=gaussian, device=device)
+                    host = (bf16_bits(frames) if frame_dtype == "bfloat16"
+                            else frames.cpu().numpy())
+                with timer.phase("write"):
+                    if layout == "flat":
+                        writer.append(s.name, host, fa.chain_ids, fa.residue_ids, fa.labels)
+                        continue
+                    grp = f.require_group(s.name)
+                    for i, label in enumerate(fa.labels):
+                        d = grp.require_group(fa.chain_ids[i]).create_dataset(
+                            str(fa.residue_ids[i]), data=host[i],
+                            # one chunk a frame: one raw chunk for the loader to inflate
+                            chunks=host[i].shape if compression else None,
+                            compression="gzip" if compression else None)
+                        d.attrs["label"] = label
+                        onehot = np.zeros(20, np.int64)
+                        onehot[AA3_TO_INT[label]] = 1
+                        d.attrs["encoded_residue"] = onehot
+        with timer.phase("write"):
+            f.close()
+    return output_path
+
+
+class _FlatWriter:
+    """The flat layout written as it comes: ``/frames`` in chunks of
+    ``chunk_rows`` rows, ``/labels`` (int8 one-hot) and the string
+    ``/index_*`` columns, each unlimited along its rows as the JAX writer's
+    resizable datasets; their final size is set when the file closes."""
+
+    def __init__(self, f: hdf5.Writer, dims: tuple, chunk_rows: int,
+                 compression: bool = False, frame_dtype: str = "float32"):
+        self.frames = f.create_appendable(
+            "frames", dims, np.uint16 if frame_dtype == "bfloat16" else np.float32,
+            chunk_rows, compression="gzip" if compression else None)
+        rows = max(chunk_rows * 16, 4096)
+        self.labels = f.create_appendable("labels", (20,), np.int8, rows)
+        self.cols = {name: f.create_appendable(name, (), str, rows)
+                     for name in ("index_pdb", "index_chain", "index_residue", "index_label")}
+
+    def append(self, pdb_name: str, frames: np.ndarray, chain_ids, residue_ids, labels) -> None:
+        """One structure's rows: ``frames`` as stored (float32, or bfloat16
+        bits in uint16)."""
+        r = len(labels)
+        onehot = np.zeros((r, 20), np.int8)
+        onehot[np.arange(r), [AA3_TO_INT[l] for l in labels]] = 1
+        self.frames.append(frames)
+        self.labels.append(onehot)
+        for name, values in (("index_pdb", [pdb_name] * r),
+                             ("index_chain", [str(c) for c in chain_ids]),
+                             ("index_residue", [str(x) for x in residue_ids]),
+                             ("index_label", [str(l) for l in labels])):
+            self.cols[name].append(values)
 
 
 def _align_states(fas: list[FrameAtoms], name: str) -> list[FrameAtoms]:
