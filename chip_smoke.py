@@ -2891,6 +2891,20 @@ def check_properties() -> dict:
 # td-train, through the port's own HDF5 reader and writer (no h5py here)
 
 HDF5_OVERFIT_EPOCHS = 400  # td-train steps of the 1ubq overfit (batch 76)
+HDF5_REPEATS = 8  # copies of the 988 frames' files: 7904 frames, 16 batches of 512
+
+
+def repeated_structures(inputs: Path, dest: Path, copies: int) -> list[Path]:
+    """``copies`` of each file in ``inputs`` under names of their own in
+    ``dest``: a dataset of many batches from the same structures."""
+    dest.mkdir()
+    out = []
+    for src in sorted(inputs.iterdir()):
+        stem, dot, ext = src.name.partition(".")
+        for i in range(copies):
+            out.append(dest / f"{stem}x{i}{dot}{ext}")
+            shutil.copy(src, out[-1])
+    return out
 
 
 def argmax_rows(out: Path, model: str) -> "np.ndarray":
@@ -2955,12 +2969,14 @@ def check_hdf5() -> dict:
     """HDF5 frame datasets on the card, through the port's own reader and
     writer (``io/hdf5.py``; this machine has no h5py). (1) ``td-voxelize``
     of the td-predict phase's 988 frames (every NMR state) into the tree
-    layout, twice (the first call warms the card up): frames/s, split into
-    voxelization on the card and gzip plus write on the host. (2)
-    ``td-convert-dataset`` to flat float32 and bfloat16; the frames read back
-    from the tree file equal the card's own voxelization (FrameBatchSource)
-    to 2e-5; the loader alone, each layout to the card, frames/s; the C++
-    inflate pool against Python threads over zlib (inflate_pools). (3) ``td-predict`` of TIMED and TIMED_rotamer (registry widths,
+    layout (this call warms the card up), then of HDF5_REPEATS copies of
+    their files (7904 frames, 16 batches of 512: what the rest reads):
+    frames/s, split into voxelization on the card and gzip plus write on the
+    host. (2) ``td-convert-dataset`` to flat float32 and bfloat16; the frames
+    read back from the tree file equal the card's own voxelization
+    (FrameBatchSource) to 2e-5; the loader alone, each layout to the card,
+    frames/s; the C++ inflate pool against Python threads over zlib
+    (inflate_pools). (3) ``td-predict`` of TIMED and TIMED_rotamer (registry widths,
     random weights from a seed, bfloat16, batch 512, ``--is_structure_nmr``)
     from each layout and with ``--voxelize``: frames/s and the share of the
     predict phase spent waiting on the loader; the files without a
@@ -2991,23 +3007,25 @@ def check_hdf5() -> dict:
     t_phase = time.perf_counter()
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_hdf5_", dir=ROOT))
     sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
-    int8_before = conv3d_int8.launches
+    conv3d_int8.launches = 0
     out: dict = {}
     try:
-        inputs = work / "in"
-        write_structures(inputs)
+        write_structures(work / "in")
+        inputs = work / "many"
+        paths = repeated_structures(work / "in", inputs, HDF5_REPEATS)
+        n_frames = 988 * HDF5_REPEATS
         # (1) td-voxelize
         vox = {}
-        for tag in ("first", "warm"):
+        for tag, src, n in (("first", work / "in", 988), ("warm", inputs, n_frames)):
             t0 = time.perf_counter()
-            path, phases = voxelize.main([str(inputs), "-e", ".pdb*", "-n", f"tree_{tag}", "-o",
+            path, phases = voxelize.main([str(src), "-e", ".pdb*", "-n", f"tree_{tag}", "-o",
                                           str(work), "--voxelise_all_states"])
             wall = time.perf_counter() - t0
-            vox[tag] = {"wall_s": wall, "phases_s": phases, "frames_per_s": 988 / wall,
-                        "mb": path.stat().st_size / 1e6}
-            log(f"td-voxelize ({tag}) 988 frames, tree gzip: {wall:.3f} s, "
-                f"{988 / wall:.0f} frames/s; " + ", ".join(f"{k} {v:.3f} s" for k, v in
-                                                          phases.items())
+            vox[tag] = {"frames": n, "wall_s": wall, "phases_s": phases,
+                        "frames_per_s": n / wall, "mb": path.stat().st_size / 1e6}
+            log(f"td-voxelize ({tag}) {n} frames, tree gzip: {wall:.3f} s, "
+                f"{n / wall:.0f} frames/s; " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                                        phases.items())
                 + f"; {vox[tag]['mb']:.1f} MB; {gpu_name_and_power()}")
         tree = work / "tree_warm.hdf5"
         out["td_voxelize"] = vox
@@ -3021,11 +3039,12 @@ def check_hdf5() -> dict:
             conv[dt] = {"wall_s": time.perf_counter() - t0,
                         "mb": files[f"flat_{dt}"].stat().st_size / 1e6}
             log(f"td-convert-dataset tree -> flat {dt}: {conv[dt]['wall_s']:.3f} s, "
-                f"{988 / conv[dt]['wall_s']:.0f} frames/s, {conv[dt]['mb']:.1f} MB")
+                f"{n_frames / conv[dt]['wall_s']:.0f} frames/s, {conv[dt]['mb']:.1f} MB")
         out["td_convert_dataset"] = conv
         dmap, _ = h5_map(tree)
-        fs = make_frame_set(sorted(inputs.glob("*.pdb*")), voxelise_all_states=True)
-        assert create_flat_dataset_map(fs).entries == dmap.entries and len(dmap.entries) == 988
+        fs = make_frame_set(paths, voxelise_all_states=True)
+        assert create_flat_dataset_map(fs).entries == dmap.entries
+        assert len(dmap.entries) == n_frames
         err = 0.0
         for (Xf, yf, nf), (Xs, ys, ns) in zip(FrameBatchLoader(tree, dmap, 512, device="cuda"),
                                               FrameBatchSource(fs, dmap, 512, device="cuda")):
@@ -3047,7 +3066,7 @@ def check_hdf5() -> dict:
                 for X, _, _ in loader:
                     pass
                 torch.cuda.synchronize()
-                alone[f"{name}_{p}"] = 988 / (time.perf_counter() - t0)
+                alone[f"{name}_{p}"] = n_frames / (time.perf_counter() - t0)
         log("hdf5: FrameBatchLoader alone to the card, batch 512: " + ", ".join(
             f"{k} {v:.0f} frames/s" for k, v in alone.items()) + f"; {gpu_name_and_power()}")
         out["loader_frames_per_s"] = alone
@@ -3103,21 +3122,21 @@ def check_hdf5() -> dict:
             layouts["voxelize_argmax_agreement"] = agree
             assert agree >= 0.99, f"{model}: argmax agreement {agree:.4f} with --voxelize"
             predict[model] = {"runs": runs, "layouts": layouts}
-            log(f"hdf5 td-predict {model} bf16, 988 frames, batch 512: " + "; ".join(
+            log(f"hdf5 td-predict {model} bf16, {n_frames} frames, batch 512: " + "; ".join(
                 f"{k} {r['predict_frames_per_s']:.0f} frames/s (loader wait "
                 f"{r['loader_wait_share']:.3f} of predict)" for k, r in runs.items())
                 + f"; layouts byte-equal: {layouts['byte_equal']}; fasta against --voxelize "
                 f"byte-equal: {layouts['voxelize_fasta_byte_equal']} (argmax agreement "
                 f"{agree:.4f}); {gpu_name_and_power()}")
         out["td_predict"] = predict
-        assert conv3d_int8.launches == int8_before, "an unquantized HDF5 path launched int8"
+        assert conv3d_int8.launches == 0, "an unquantized HDF5 path launched int8"
 
         # (4) td-predict --quantize int8 from the flat bfloat16 file
         quant = {}
         for model in ("TIMED", "TIMED_rotamer"):
-            before = conv3d_int8.launches
+            conv3d_int8.launches = 0
             r = run(model, files["flat_bfloat16"], work / f"{model}_int8", ["--quantize", "int8"])
-            r["launches"] = conv3d_int8.launches - before
+            r["launches"] = conv3d_int8.launches
             batches = -(-r["frames"] // 512)
             log(f"hdf5 td-predict --quantize int8 {model} from the flat bfloat16 file: "
                 f"{r['predict_frames_per_s']:.0f} frames/s, conv3d_int8 launches {r['launches']} "
@@ -3136,7 +3155,7 @@ def check_hdf5() -> dict:
         out["train_from_file"] = feed
 
         # (6) td-train: the 1ubq overfit, then td-predict from its checkpoint
-        ubq, _ = voxelize.main([str(inputs / "1ubq.pdb1.gz"), "-n", "ubq", "-o", str(work)])
+        ubq, _ = voxelize.main([str(work / "in" / "1ubq.pdb1.gz"), "-n", "ubq", "-o", str(work)])
         ckpt = work / "overfit.npz"
         t0 = time.perf_counter()
         # a cosine schedule: the weights come to rest, so that BatchNorm's
@@ -3170,6 +3189,125 @@ def check_hdf5() -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"hdf5: phase passed in {out['phase_s']:.1f} s; launches of the sampling kernel 0, "
         f"of conv3d_int8 {int8_launches}")
+    return out
+
+
+def hdf5_loader_ab() -> dict:
+    """A/B of the frame loader's host paths on check_hdf5's dataset
+    (HDF5_REPEATS copies of the 988 frames' files): ``td-predict`` of TIMED
+    (registry widths, random weights from a seed, bfloat16, batch 512) and
+    ``fit`` of registry TIMED (bfloat16, batch 256; train_throughput) fed
+    from the files. (a) The tree file, its gzip chunks inflated by the C++
+    pool (``io/fast_inflate.py::inflate_many``, what the loader runs) or by a
+    pool of Python threads over ``zlib.decompress``. (b) The flat files, read
+    by ``preadv`` straight into the pinned buffer (``_read_flat_into``, what
+    the loader runs) or copied there from a memory map. Each pair runs in
+    the order A B B A: td-predict frames/s and its loader wait share, fit
+    frames/s and its busy share."""
+    import tempfile
+    import zlib
+
+    import numpy as np
+    import torch
+
+    import timed_design_tpu_torch.io.h5frames as h5frames
+    from timed_design_tpu_torch.cli import convert_dataset, voxelize
+    from timed_design_tpu_torch.cli.predict import main as predict_main
+    from timed_design_tpu_torch.io import FrameBatchLoader
+    from timed_design_tpu_torch.io import create_flat_dataset_map as h5_map
+    from timed_design_tpu_torch.io.fast_inflate import MAX_THREADS
+
+    k = min(MAX_THREADS, os.cpu_count() or 1)
+    threads = ThreadPoolExecutor(k)
+
+    def python_inflate(srcs, dsts):
+        def worker(start):
+            for i in range(start, len(srcs), k):
+                dsts[i].reshape(-1).view(np.uint8)[:] = np.frombuffer(
+                    zlib.decompress(srcs[i], 15, dsts[i].nbytes), np.uint8)
+
+        for fut in [threads.submit(worker, s) for s in range(k)]:
+            fut.result()
+
+    def memmap_read_into(self, f, rows, index, X, labels):
+        mm = self.__dict__.setdefault("_ab_memmap", self._flat_setup(f))
+        sel = rows[index * self.batch_size:(index + 1) * self.batch_size]
+        n = len(sel)
+        Xv = X.view(mm.dtype)
+        start = int(sel[0]) if n else 0
+        if n and np.array_equal(sel, np.arange(start, start + n)):
+            Xv[:n] = mm[start:start + n]
+        elif n:
+            order = np.argsort(sel, kind="stable")
+            Xv[:n][order] = mm[sel[order]]
+        X[n:] = 0
+        y = np.zeros((self.batch_size, 20), np.float32)
+        y[:n] = labels[sel]
+        return y, n
+
+    variants = {
+        "tree": ("inflate", "cpp_pool", h5frames.inflate_many, "python_threads", python_inflate),
+        "flat_float32": ("read", "preadv", h5frames.FrameBatchLoader._read_flat_into,
+                         "memmap_copy", memmap_read_into),
+        "flat_bfloat16": ("read", "preadv", h5frames.FrameBatchLoader._read_flat_into,
+                          "memmap_copy", memmap_read_into),
+    }
+
+    def use(name, fn):
+        if variants[name][0] == "inflate":
+            h5frames.inflate_many = fn
+        else:
+            h5frames.FrameBatchLoader._read_flat_into = fn
+
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_hdf5_ab_", dir=ROOT))
+    out: dict = {}
+    try:
+        write_structures(work / "in")
+        repeated_structures(work / "in", work / "many", HDF5_REPEATS)
+        tree, _ = voxelize.main([str(work / "many"), "-e", ".pdb*", "-n", "tree", "-o",
+                                 str(work), "--voxelise_all_states"])
+        files = {"tree": tree}
+        for dt in ("float32", "bfloat16"):
+            files[f"flat_{dt}"] = work / f"flat_{dt}.hdf5"
+            convert_dataset.main([str(tree), str(files[f"flat_{dt}"]), "--frame-dtype", dt])
+        dmap, _ = h5_map(tree)
+
+        def predict(src):
+            dest = work / "predict"
+            shutil.rmtree(dest, ignore_errors=True)
+            r = predict_main(["--path_to_dataset", str(src), "--path_to_model", "TIMED",
+                              "--allow-random-weights", "--batch_size", "512",
+                              "--compute_dtype", "bfloat16", "--device", "cuda",
+                              "--path_to_output", str(dest), "--path_to_datasetmap",
+                              str(dest / "datasetmap.txt"), "--is_structure_nmr"])
+            t = r.timings["predict"]
+            return {"frames_per_s": len(dmap.entries) / t, "loader_wait_share": r.loader_wait_s / t}
+
+        for name, (_, a, fa, b, fb) in variants.items():
+            runs: dict = {a: [], b: []}
+            for tag, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+                use(name, fn)
+                try:
+                    r = predict(files[name])
+                    if name != "flat_float32":
+                        loader = FrameBatchLoader(files[name], dmap, 256, shuffle=True,
+                                                  shuffle_seed=0, device="cuda")
+                        fit = train_throughput(loader, torch.bfloat16,
+                                               f"FrameBatchLoader, {name}, {tag}")
+                        r.update(fit_frames_per_s=fit["frames_per_s"],
+                                 fit_busy_share=fit["busy_share"])
+                finally:
+                    use(name, fa)
+                runs[tag].append(r)
+                log(f"hdf5 A/B {name} {tag}: td-predict TIMED bf16 {r['frames_per_s']:.0f} "
+                    f"frames/s (loader wait {r['loader_wait_share']:.3f})"
+                    + (f"; fit {r['fit_frames_per_s']:.0f} frames/s at busy "
+                       f"{r['fit_busy_share']:.3f}" if "fit_frames_per_s" in r else ""))
+            out[name] = runs
+    finally:
+        threads.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"hdf5 A/B, {len(dmap.entries)} frames; {gpu_name_and_power()}: {json.dumps(out)}")
     return out
 
 

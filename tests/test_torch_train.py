@@ -585,22 +585,32 @@ def test_warm_start_errors_name_the_leaf():
 def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
     """``td-train`` in both packages on the JAX package's HDF5 file of 1ubq:
     TIMED at widths (8, 16) from one warm-start checkpoint, float32, batch
-    32, two shuffled epochs from seed 0 (six steps, two padded batches cut
-    to their 12 rows), dropout off on both sides, JAX on a one-device mesh
-    (on eight, the padded batch would be filled to 16 rows with repeats).
-    The checkpoints: parameters within 2 * lr * steps (Adam moves an element
-    whose gradient is rounding noise by +-lr a step: the convolution biases
-    ahead of a BatchNorm, whose true gradient is 0, most); the running means
-    to the same bound (a batch mean carries its convolution's bias one for
-    one); the running variances within 1e-4; the step 0 loss equal to 4
-    places."""
+    32, two epochs shuffled from seed 5 at lr 3e-3 (neither the default),
+    six steps, two of them padded batches cut to their 12 rows; dropout off
+    on both sides, JAX on a one-device mesh (on eight, the padded batch would
+    be filled to 16 rows with repeats). Every step's batch equal (its frames'
+    bytes, its labels), every step's loss to 1e-4 (as
+    test_fit_matches_jax_and_restores_the_best_epoch), the printed step 0
+    line equal. The first step's weights held as test_train_step_matches_jax
+    holds one: parameters to 1e-6 where JAX's gradient is above 1e-3 of the
+    largest, else 2 * lr (Adam's first move is +-lr, whatever the gradient's
+    size); running statistics to 1e-5 (BatchNorm's sums over 32 x 21^3
+    voxels in float32). Each checkpoint holds its package's last weights, and
+    the two agree to 2 * lr * steps: one element whose gradient is rounding
+    noise turns its first move the other way, and the steps after it carry
+    that into every leaf."""
+    import hashlib
     import importlib
+
+    import jax
+    import optax
 
     import timed_design_tpu.train.train as jax_train
     from timed_design_tpu.cli.train import main as jax_main
     from timed_design_tpu.parallel import make_mesh
     from timed_design_tpu.voxel import make_frame_dataset
 
+    import timed_design_tpu_torch.train.train as port_train
     from timed_design_tpu_torch.cli.train import main
     from timed_design_tpu_torch.train import load_checkpoint_params
 
@@ -609,28 +619,94 @@ def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
         monkeypatch.setattr(importlib.import_module(f"{pkg}.models.timed"), "spatial_dropout_3d",
                             lambda x, *a, **k: x)
     monkeypatch.setattr(jax_train, "make_mesh", lambda: make_mesh(n_data=1))
+    # per step: the batch (a digest of its frames, its labels), the loss, and
+    # the weights after the step; JAX's gradient of the step's loss too, as
+    # in test_train_step_matches_jax
+    seen = {"jax": {}, "port": {}}
+    jax_step, port_step = jax_train.make_train_step, port_train.make_train_step
+
+    def batch(xb, yb):
+        x = np.ascontiguousarray(np.asarray(xb, np.float32))
+        return hashlib.sha256(x.tobytes()).hexdigest(), x.shape, np.asarray(yb).argmax(1)
+
+    def jax_recording(module, optimizer, class_weights=None):
+        step = jax_step(module, optimizer, class_weights)
+
+        def run(state, xb, yb, rng):
+            def loss_fn(params):
+                out, _ = module.apply({"params": params, "batch_stats": state.batch_stats}, xb,
+                                      train=True, logits=True, rngs={"dropout": rng},
+                                      mutable=["batch_stats"])
+                return optax.softmax_cross_entropy(out, yb).mean()
+
+            new, m = step(state, xb, yb, rng)
+            jax.debug.callback(
+                lambda k, x, y, loss, p, s, g: seen["jax"].__setitem__(
+                    int(k), (batch(x, y), float(loss), _leaves(p), _leaves(s), _leaves(g))),
+                state.step, xb, yb, m["loss"], new.params, new.batch_stats,
+                jax.grad(loss_fn)(state.params))
+            return new, m
+        return run
+
+    def port_recording(module, optimizer, class_weights=None):
+        step = port_step(module, optimizer, class_weights)
+
+        def run(xb, yb, generator=None):
+            m = step(xb, yb, generator)
+            after = port_train.flax_variables(module)
+            seen["port"][len(seen["port"])] = (batch(xb, yb), float(m["loss"]),
+                                               _leaves(after["params"]),
+                                               _leaves(after["batch_stats"]))
+            return m
+        return run
+
+    monkeypatch.setattr(jax_train, "make_train_step", jax_recording)
+    monkeypatch.setattr(port_train, "make_train_step", port_recording)
     data = make_frame_dataset([ubq_pdb_gz], tmp_path / "ubq.hdf5")
     init = _save_variables(tmp_path / "init.npz",
                            _variables(_jax_module("TIMED", bn_momentum=0.9), seed=21))
-    lr, steps = 1e-3, 6
+    lr, steps, momentum = 3e-3, 6, 0.9
     argv = ["--path_to_dataset", str(data), "--model", "TIMED", "--filters", "8,16",
-            "--batch_size", "32", "--epochs", "2", "--learning_rate", str(lr),
-            "--bn_momentum", "0.9", "--init_from", str(init)]
+            "--batch_size", "32", "--epochs", "2", "--learning_rate", str(lr), "--seed", "5",
+            "--bn_momentum", str(momentum), "--init_from", str(init)]
     capsys.readouterr()
     jax_main(argv + ["--output", str(tmp_path / "jax.npz")])
     jax_out = capsys.readouterr().out
     main(argv + ["--output", str(tmp_path / "port.npz"), "--device", "cpu"])
     port_out = capsys.readouterr().out
     assert f"after {steps} steps" in jax_out and f"after {steps} steps" in port_out
-    loss = [re.search(r"step 0: loss=(\S+)", o).group(1) for o in (jax_out, port_out)]
-    assert loss[0] == loss[1]
+    printed = [re.search(r"step 0: .*", o).group(0) for o in (jax_out, port_out)]
+    assert printed[0] == printed[1]
+    assert sorted(seen["jax"]) == sorted(seen["port"]) == list(range(steps))
+    jax_seen, port_seen = ([seen[p][k] for k in range(steps)] for p in ("jax", "port"))
+    for k, (j, p) in enumerate(zip(jax_seen, port_seen)):
+        assert j[0][:2] == p[0][:2] and np.array_equal(j[0][2], p[0][2]), f"step {k}'s batch"
+    assert [p[0][1][0] for p in port_seen] == [32, 32, 12] * 2
+    np.testing.assert_allclose([p[1] for p in port_seen], [j[1] for j in jax_seen],
+                               rtol=0, atol=1e-4)
+    # the first step, held as test_train_step_matches_jax holds one: Adam's
+    # first move is +-lr, so 2 * lr where the gradient is rounding noise
+    grads = jax_seen[0][4]
+    scale = max(float(np.abs(v).max()) for v in grads.values())
+    for k, w in jax_seen[0][2].items():
+        tol = np.where(np.abs(grads[k]) > 1e-3 * scale, 1e-6, 2 * lr)
+        bad = np.abs(port_seen[0][2][k] - w) > tol
+        assert not bad.any(), f"step 0, param {k}: {int(bad.sum())} elements off"
+    for k, w in jax_seen[0][3].items():
+        np.testing.assert_allclose(port_seen[0][3][k], w, rtol=0, atol=1e-5,
+                                   err_msg=f"step 0, batch_stats {k}")
+    # each checkpoint holds its package's last weights; after six steps an
+    # element whose gradient is rounding noise has turned Adam's move the
+    # other way and later steps carry that on, so the two agree to 2 * lr * steps
     want, got = (load_checkpoint_params(tmp_path / n) for n in ("jax.npz", "port.npz"))
-    for part in ("params", "batch_stats"):
+    for part, i in (("params", 2), ("batch_stats", 3)):
         w, g = _leaves(want[part]), _leaves(got[part])
-        assert w.keys() == g.keys()
+        assert w.keys() == g.keys() == jax_seen[-1][i].keys()
         for k in w:
-            tol = 1e-4 if k.endswith("/var") else 2 * lr * steps
-            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=tol, err_msg=f"{part}/{k}")
+            np.testing.assert_array_equal(w[k], jax_seen[-1][i][k], err_msg=f"jax {part}/{k}")
+            np.testing.assert_array_equal(g[k], port_seen[-1][i][k], err_msg=f"port {part}/{k}")
+            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=2 * lr * steps,
+                                       err_msg=f"{part}/{k}")
     assert not np.allclose(_leaves(got["params"])["Conv_0/kernel"],
                            _leaves(load_checkpoint_params(init)["params"])["Conv_0/kernel"])
 
