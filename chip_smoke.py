@@ -2916,6 +2916,23 @@ def argmax_rows(out: Path, model: str) -> "np.ndarray":
     return np.loadtxt(out / name, delimiter=",", ndmin=2).astype(np.float16).argmax(1)
 
 
+def python_threads_inflate(pool: ThreadPoolExecutor, k: int, srcs: list, dsts: list) -> None:
+    """``inflate_many``'s work done by ``k`` Python threads of ``pool`` over
+    ``zlib.decompress`` (the tree loader's first design), each output copied
+    into its destination."""
+    import zlib
+
+    import numpy as np
+
+    def worker(start):
+        for i in range(start, len(srcs), k):
+            dsts[i].reshape(-1).view(np.uint8)[:] = np.frombuffer(
+                zlib.decompress(srcs[i], 15, dsts[i].nbytes), np.uint8)
+
+    for fut in [pool.submit(worker, s) for s in range(k)]:
+        fut.result()
+
+
 def inflate_pools(tree: Path, entries: list) -> dict:
     """Frames/s of the tree loader's inflate on the host: the C++ pool
     (``io/fast_inflate.py::inflate_many``, what the loader runs) against a
@@ -2923,8 +2940,6 @@ def inflate_pools(tree: Path, entries: list) -> dict:
     on the gzip chunks of ``entries``, each into its row of one buffer;
     median of 5 calls after one."""
     import statistics
-    import zlib
-    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -2938,20 +2953,10 @@ def inflate_pools(tree: Path, entries: list) -> dict:
             srcs.append(f.read_raw(c.addr, c.size))
     X = np.empty((len(srcs), 21, 21, 21, 5), np.float32)
     k = min(MAX_THREADS, os.cpu_count() or 1)
-
-    def python_threads():
-        def worker(start):
-            for i in range(start, len(srcs), k):
-                X[i].reshape(-1).view(np.uint8)[:] = np.frombuffer(
-                    zlib.decompress(srcs[i], 15, X[i].nbytes), np.uint8)
-
-        with ThreadPoolExecutor(k) as pool:
-            for fut in [pool.submit(worker, s) for s in range(k)]:
-                fut.result()
-
+    threads = ThreadPoolExecutor(k)
     out = {}
     for name, fn in (("cpp_pool", lambda: inflate_many(srcs, list(X))),
-                     ("python_threads", python_threads)):
+                     ("python_threads", lambda: python_threads_inflate(threads, k, srcs, list(X)))):
         fn()
         times = []
         for _ in range(5):
@@ -2959,6 +2964,7 @@ def inflate_pools(tree: Path, entries: list) -> dict:
             fn()
             times.append(time.perf_counter() - t0)
         out[name] = len(srcs) / statistics.median(times)
+    threads.shutdown()
     log(f"hdf5: inflate of {len(srcs)} tree frames on {k} host threads: C++ pool "
         f"{out['cpp_pool']:.0f} frames/s, Python threads over zlib "
         f"{out['python_threads']:.0f} frames/s")
@@ -2977,6 +2983,7 @@ def check_hdf5() -> dict:
     (FrameBatchSource) to 2e-5; the loader alone, each layout to the card,
     frames/s; the C++ inflate pool against Python threads over zlib
     (inflate_pools). (3) ``td-predict`` of TIMED and TIMED_rotamer (registry widths,
+    after one unrecorded warm-up run of each,
     random weights from a seed, bfloat16, batch 512, ``--is_structure_nmr``)
     from each layout and with ``--voxelize``: frames/s and the share of the
     predict phase spent waiting on the loader; the files without a
@@ -3088,6 +3095,9 @@ def check_hdf5() -> dict:
 
         predict = {}
         for model in ("TIMED", "TIMED_rotamer"):
+            # a first run of the model in this process, not recorded: cuDNN's
+            # warm-up would land on whichever layout came first
+            run(model, files["flat_bfloat16"], work / f"{model}_warmup")
             runs = {"voxelize": run(model, inputs, work / f"{model}_voxelize", ["--voxelize"])}
             for name, path in files.items():
                 runs[name] = run(model, path, work / f"{model}_{name}")
@@ -3193,25 +3203,22 @@ def check_hdf5() -> dict:
 
 
 def hdf5_loader_ab() -> dict:
-    """A/B of the frame loader's host paths on check_hdf5's dataset
-    (HDF5_REPEATS copies of the 988 frames' files): ``td-predict`` of TIMED
-    (registry widths, random weights from a seed, bfloat16, batch 512) and
-    ``fit`` of registry TIMED (bfloat16, batch 256; train_throughput) fed
-    from the files. (a) The tree file, its gzip chunks inflated by the C++
+    """A/B of the tree loader's inflate on check_hdf5's dataset
+    (HDF5_REPEATS copies of the 988 frames' files, tree gzip): ``td-predict``
+    of TIMED (registry widths, random weights from a seed, bfloat16, batch
+    512) and ``fit`` of registry TIMED (bfloat16, batch 256;
+    train_throughput) fed from the file, its gzip chunks inflated by the C++
     pool (``io/fast_inflate.py::inflate_many``, what the loader runs) or by a
-    pool of Python threads over ``zlib.decompress``. (b) The flat files, read
-    by ``preadv`` straight into the pinned buffer (``_read_flat_into``, what
-    the loader runs) or copied there from a memory map. Each pair runs in
-    the order A B B A: td-predict frames/s and its loader wait share, fit
-    frames/s and its busy share."""
+    pool of Python threads over ``zlib.decompress``, in the order A B B A:
+    td-predict frames/s and its loader wait share, fit frames/s and its busy
+    share. Not run by ``main``: ``python3 -c "import chip_smoke as c;
+    c.hdf5_loader_ab()"``."""
     import tempfile
-    import zlib
 
-    import numpy as np
     import torch
 
     import timed_design_tpu_torch.io.h5frames as h5frames
-    from timed_design_tpu_torch.cli import convert_dataset, voxelize
+    from timed_design_tpu_torch.cli import voxelize
     from timed_design_tpu_torch.cli.predict import main as predict_main
     from timed_design_tpu_torch.io import FrameBatchLoader
     from timed_design_tpu_torch.io import create_flat_dataset_map as h5_map
@@ -3221,94 +3228,46 @@ def hdf5_loader_ab() -> dict:
     threads = ThreadPoolExecutor(k)
 
     def python_inflate(srcs, dsts):
-        def worker(start):
-            for i in range(start, len(srcs), k):
-                dsts[i].reshape(-1).view(np.uint8)[:] = np.frombuffer(
-                    zlib.decompress(srcs[i], 15, dsts[i].nbytes), np.uint8)
+        python_threads_inflate(threads, k, srcs, dsts)
 
-        for fut in [threads.submit(worker, s) for s in range(k)]:
-            fut.result()
-
-    def memmap_read_into(self, f, rows, index, X, labels):
-        mm = self.__dict__.setdefault("_ab_memmap", self._flat_setup(f))
-        sel = rows[index * self.batch_size:(index + 1) * self.batch_size]
-        n = len(sel)
-        Xv = X.view(mm.dtype)
-        start = int(sel[0]) if n else 0
-        if n and np.array_equal(sel, np.arange(start, start + n)):
-            Xv[:n] = mm[start:start + n]
-        elif n:
-            order = np.argsort(sel, kind="stable")
-            Xv[:n][order] = mm[sel[order]]
-        X[n:] = 0
-        y = np.zeros((self.batch_size, 20), np.float32)
-        y[:n] = labels[sel]
-        return y, n
-
-    variants = {
-        "tree": ("inflate", "cpp_pool", h5frames.inflate_many, "python_threads", python_inflate),
-        "flat_float32": ("read", "preadv", h5frames.FrameBatchLoader._read_flat_into,
-                         "memmap_copy", memmap_read_into),
-        "flat_bfloat16": ("read", "preadv", h5frames.FrameBatchLoader._read_flat_into,
-                          "memmap_copy", memmap_read_into),
-    }
-
-    def use(name, fn):
-        if variants[name][0] == "inflate":
-            h5frames.inflate_many = fn
-        else:
-            h5frames.FrameBatchLoader._read_flat_into = fn
-
+    cpp_pool = h5frames.inflate_many
     work = Path(tempfile.mkdtemp(prefix=".chip_smoke_hdf5_ab_", dir=ROOT))
-    out: dict = {}
+    runs: dict = {"cpp_pool": [], "python_threads": []}
     try:
         write_structures(work / "in")
         repeated_structures(work / "in", work / "many", HDF5_REPEATS)
         tree, _ = voxelize.main([str(work / "many"), "-e", ".pdb*", "-n", "tree", "-o",
                                  str(work), "--voxelise_all_states"])
-        files = {"tree": tree}
-        for dt in ("float32", "bfloat16"):
-            files[f"flat_{dt}"] = work / f"flat_{dt}.hdf5"
-            convert_dataset.main([str(tree), str(files[f"flat_{dt}"]), "--frame-dtype", dt])
         dmap, _ = h5_map(tree)
-
-        def predict(src):
-            dest = work / "predict"
-            shutil.rmtree(dest, ignore_errors=True)
-            r = predict_main(["--path_to_dataset", str(src), "--path_to_model", "TIMED",
-                              "--allow-random-weights", "--batch_size", "512",
-                              "--compute_dtype", "bfloat16", "--device", "cuda",
-                              "--path_to_output", str(dest), "--path_to_datasetmap",
-                              str(dest / "datasetmap.txt"), "--is_structure_nmr"])
-            t = r.timings["predict"]
-            return {"frames_per_s": len(dmap.entries) / t, "loader_wait_share": r.loader_wait_s / t}
-
-        for name, (_, a, fa, b, fb) in variants.items():
-            runs: dict = {a: [], b: []}
-            for tag, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
-                use(name, fn)
-                try:
-                    r = predict(files[name])
-                    if name != "flat_float32":
-                        loader = FrameBatchLoader(files[name], dmap, 256, shuffle=True,
-                                                  shuffle_seed=0, device="cuda")
-                        fit = train_throughput(loader, torch.bfloat16,
-                                               f"FrameBatchLoader, {name}, {tag}")
-                        r.update(fit_frames_per_s=fit["frames_per_s"],
-                                 fit_busy_share=fit["busy_share"])
-                finally:
-                    use(name, fa)
-                runs[tag].append(r)
-                log(f"hdf5 A/B {name} {tag}: td-predict TIMED bf16 {r['frames_per_s']:.0f} "
-                    f"frames/s (loader wait {r['loader_wait_share']:.3f})"
-                    + (f"; fit {r['fit_frames_per_s']:.0f} frames/s at busy "
-                       f"{r['fit_busy_share']:.3f}" if "fit_frames_per_s" in r else ""))
-            out[name] = runs
+        for tag, fn in (("cpp_pool", cpp_pool), ("python_threads", python_inflate),
+                        ("python_threads", python_inflate), ("cpp_pool", cpp_pool)):
+            h5frames.inflate_many = fn
+            try:
+                dest = work / "predict"
+                shutil.rmtree(dest, ignore_errors=True)
+                r = predict_main(["--path_to_dataset", str(tree), "--path_to_model", "TIMED",
+                                  "--allow-random-weights", "--batch_size", "512",
+                                  "--compute_dtype", "bfloat16", "--device", "cuda",
+                                  "--path_to_output", str(dest), "--path_to_datasetmap",
+                                  str(dest / "datasetmap.txt"), "--is_structure_nmr"])
+                t = r.timings["predict"]
+                loader = FrameBatchLoader(tree, dmap, 256, shuffle=True, shuffle_seed=0,
+                                          device="cuda")
+                fit = train_throughput(loader, torch.bfloat16, f"FrameBatchLoader, tree, {tag}")
+            finally:
+                h5frames.inflate_many = cpp_pool
+            runs[tag].append({"frames_per_s": len(dmap.entries) / t,
+                              "loader_wait_share": r.loader_wait_s / t,
+                              "fit_frames_per_s": fit["frames_per_s"],
+                              "fit_busy_share": fit["busy_share"]})
+            log(f"hdf5 A/B tree {tag}: td-predict TIMED bf16 {runs[tag][-1]['frames_per_s']:.0f} "
+                f"frames/s (loader wait {runs[tag][-1]['loader_wait_share']:.3f}); fit "
+                f"{fit['frames_per_s']:.0f} frames/s at busy {fit['busy_share']:.3f}")
     finally:
         threads.shutdown()
         shutil.rmtree(work, ignore_errors=True)
-    log(f"hdf5 A/B, {len(dmap.entries)} frames; {gpu_name_and_power()}: {json.dumps(out)}")
-    return out
+    log(f"hdf5 A/B, {len(dmap.entries)} frames; {gpu_name_and_power()}: {json.dumps(runs)}")
+    return runs
 
 
 def main() -> int:

@@ -326,26 +326,28 @@ def test_read_flat_frames_equals_jax(jax_flat, name):
 
 
 @pytest.mark.parametrize("name", ["flat_contiguous", "flat_contiguous_bf16"])
-def test_flat_rows_read_into_a_buffer_equal_the_loaders(jax_flat, name):
-    """The reads a card's loader makes into its pinned buffers (one read
-    for rows in order, one a row otherwise), into a reused buffer full of
-    junk: equal to the loader's batches, padding rows zeroed."""
+def test_flat_batches_equal_h5pys_rows(jax_flat, name):
+    """The reads a loader makes of a contiguous flat file, whatever its
+    device (a view of the memory map for a full batch of rows in order, a
+    sorted gather otherwise), against h5py's rows of the same selection:
+    every batch in order and shuffled, the last one's padding rows zero."""
     from timed_design_tpu_torch.io import FrameBatchLoader, hdf5
 
     path = jax_flat[name]
     _, pmap = _maps(path)
     loader = FrameBatchLoader(path, pmap, BATCH)
-    with hdf5.File(path) as f:
-        labels = np.asarray(f["labels"][()], np.float32)
+    with hdf5.File(path) as f, h5py.File(path, "r") as h:
+        frames, labels = h["frames"][()], np.asarray(h["labels"][()], np.float32)
         mm = loader._flat_setup(f)
+        assert mm is not None
         for rows in (loader._flat_rows(f), np.random.default_rng(2).permutation(len(pmap.entries))):
-            for index in (0, loader.n_batches - 1):
-                X = np.full((BATCH, *mm.shape[1:]), 7, mm.dtype)
-                y, n = loader._read_flat_into(f, rows, index, X, labels)
-                Xw, yw, nw = loader._read_batch_flat(f, rows, index, mm, labels)
-                want = Xw.view(torch.int16).numpy() if Xw.dtype == torch.bfloat16 else Xw.numpy()
-                assert n == nw and (y == yw).all()
-                np.testing.assert_array_equal(X.view(want.dtype), want)
+            for index in range(loader.n_batches):
+                X, y, n = loader._read_batch_flat(f, rows, index, mm, labels)
+                sel = rows[index * BATCH:(index + 1) * BATCH]
+                got = X.view(torch.int16).numpy() if X.dtype == torch.bfloat16 else X.numpy()
+                assert n == len(sel) and (y[:n] == labels[sel]).all() and not y[n:].any()
+                np.testing.assert_array_equal(got[:n], frames[sel].view(got.dtype))
+                assert not got[n:].any()
 
 
 @pytest.fixture

@@ -585,7 +585,7 @@ def test_warm_start_errors_name_the_leaf():
 def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
     """``td-train`` in both packages on the JAX package's HDF5 file of 1ubq:
     TIMED at widths (8, 16) from one warm-start checkpoint, float32, batch
-    32, two epochs shuffled from seed 5 at lr 3e-3 (neither the default),
+    32, two epochs shuffled from seed 5 at lr 5e-4 (neither the default),
     six steps, two of them padded batches cut to their 12 rows; dropout off
     on both sides, JAX on a one-device mesh (on eight, the padded batch would
     be filled to 16 rows with repeats). Every step's batch equal (its frames'
@@ -596,9 +596,9 @@ def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
     largest, else 2 * lr (Adam's first move is +-lr, whatever the gradient's
     size); running statistics to 1e-5 (BatchNorm's sums over 32 x 21^3
     voxels in float32). Each checkpoint holds its package's last weights, and
-    the two agree to 2 * lr * steps: one element whose gradient is rounding
-    noise turns its first move the other way, and the steps after it carry
-    that into every leaf."""
+    the two agree to 2 * lr * steps, the running variances to 1e-4: one
+    element whose gradient is rounding noise turns its first move the other
+    way, and the steps after it carry that into every leaf."""
     import hashlib
     import importlib
 
@@ -665,7 +665,7 @@ def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
     data = make_frame_dataset([ubq_pdb_gz], tmp_path / "ubq.hdf5")
     init = _save_variables(tmp_path / "init.npz",
                            _variables(_jax_module("TIMED", bn_momentum=0.9), seed=21))
-    lr, steps, momentum = 3e-3, 6, 0.9
+    lr, steps, momentum = 5e-4, 6, 0.9
     argv = ["--path_to_dataset", str(data), "--model", "TIMED", "--filters", "8,16",
             "--batch_size", "32", "--epochs", "2", "--learning_rate", str(lr), "--seed", "5",
             "--bn_momentum", str(momentum), "--init_from", str(init)]
@@ -695,9 +695,9 @@ def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
     for k, w in jax_seen[0][3].items():
         np.testing.assert_allclose(port_seen[0][3][k], w, rtol=0, atol=1e-5,
                                    err_msg=f"step 0, batch_stats {k}")
-    # each checkpoint holds its package's last weights; after six steps an
-    # element whose gradient is rounding noise has turned Adam's move the
-    # other way and later steps carry that on, so the two agree to 2 * lr * steps
+    # each checkpoint holds its package's last weights; an element whose
+    # gradient is rounding noise has turned Adam's first move the other way,
+    # and the later steps carry that into every leaf
     want, got = (load_checkpoint_params(tmp_path / n) for n in ("jax.npz", "port.npz"))
     for part, i in (("params", 2), ("batch_stats", 3)):
         w, g = _leaves(want[part]), _leaves(got[part])
@@ -705,8 +705,8 @@ def test_td_train_cli_matches_jax(tmp_path, monkeypatch, ubq_pdb_gz, capsys):
         for k in w:
             np.testing.assert_array_equal(w[k], jax_seen[-1][i][k], err_msg=f"jax {part}/{k}")
             np.testing.assert_array_equal(g[k], port_seen[-1][i][k], err_msg=f"port {part}/{k}")
-            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=2 * lr * steps,
-                                       err_msg=f"{part}/{k}")
+            tol = 1e-4 if k.endswith("/var") else 2 * lr * steps
+            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=tol, err_msg=f"{part}/{k}")
     assert not np.allclose(_leaves(got["params"])["Conv_0/kernel"],
                            _leaves(load_checkpoint_params(init)["params"])["Conv_0/kernel"])
 

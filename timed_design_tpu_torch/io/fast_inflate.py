@@ -4,9 +4,11 @@ caller's buffers: the port's copy of ``timed_design_tpu/io/fast_inflate.py``.
 The tree-layout loader (``io/h5frames.py``) reads a batch's raw gzip chunks
 itself and inflates them here, in the C++ thread pool of
 ``csrc/inflate_pool.cpp`` (``uncompress`` of the process's libz.so.1). A
-thread pool over Python's ``zlib`` came first and scaled poorly, since
-``zlib.decompress`` allocates every output anew; ``chip_smoke.py`` times
-the two on the card (``PERF.md``). The library is compiled with g++ at
+thread pool over Python's ``zlib`` came first: it inflates more slowly
+(``zlib.decompress`` allocates every output anew, copied in under the
+interpreter lock), and a training loop fed from a tree file then keeps the
+card busy for less of its time; ``chip_smoke.py::hdf5_loader_ab`` runs
+the two end to end on the card (``PERF.md``). The library is compiled with g++ at
 first use into the package's git-ignored ``_build/``; a build or load
 failure raises, with no quiet fallback. ``deflate_many``, the writer's side,
 stays a pool of Python threads over ``zlib.compress`` (its outputs are

@@ -397,26 +397,6 @@ class FrameBatchLoader:
                              offset=ds.data_offset, shape=ds.shape)
         return None
 
-    def _read_flat_into(self, f: hdf5.File, rows: np.ndarray, index: int, X: np.ndarray,
-                        labels: np.ndarray) -> tuple[np.ndarray, int]:
-        """Batch ``index`` of a contiguous, unfiltered flat file read by the
-        kernel straight into ``X`` (a reused buffer of the stored dtype):
-        one read for rows in order, else one a row. Returns (y, n_valid)."""
-        sel = rows[index * self.batch_size:(index + 1) * self.batch_size]
-        n = len(sel)
-        ds = f["frames"]
-        row = X[0].nbytes
-        start = int(sel[0]) if n else 0
-        if n and np.array_equal(sel, np.arange(start, start + n)):
-            f.read_into(ds.data_offset + start * row, X[:n])
-        else:
-            for i, r in enumerate(sel.tolist()):
-                f.read_into(ds.data_offset + r * row, X[i])
-        X[n:] = 0
-        y = np.zeros((self.batch_size, 20), np.float32)
-        y[:n] = labels[sel]
-        return y, n
-
     def _read_batch_flat(self, f: hdf5.File, rows: np.ndarray, index: int,
                          mm: np.ndarray | None, labels: np.ndarray):
         sel = rows[index * self.batch_size:(index + 1) * self.batch_size]
@@ -478,22 +458,10 @@ class FrameBatchLoader:
                             rows = rows[perm]
                         mm = self._flat_setup(f)
                         labels = np.asarray(f["labels"][()], np.float32)
-                        bf16 = _is_bf16(f)
-                        # frames the buffer holds as stored: read straight into it
-                        direct = (stage is not None and mm is not None
-                                  and (bf16 or mm.dtype == np.float32))
                         for index in range(self.start_batch, self.n_batches):
-                            if direct:
-                                slot = stage.fill(shape, torch.bfloat16 if bf16 else torch.float32,
-                                                  cancel)
-                                if slot is None:
-                                    return
-                                X = (slot.buf.view(torch.int16) if bf16 else slot.buf).numpy()
-                                item = (slot, *self._read_flat_into(f, rows, index, X, labels))
-                            else:
-                                item = self._read_batch_flat(f, rows, index, mm, labels)
-                                if stage is not None:
-                                    item = staged(item)
+                            item = self._read_batch_flat(f, rows, index, mm, labels)
+                            if stage is not None:
+                                item = staged(item)
                             if item is None or not put(item):
                                 return
                     else:

@@ -162,17 +162,6 @@ class File:
                              "of the file")
         return data
 
-    def read_into(self, addr: int, out: np.ndarray) -> None:
-        """Fill the C-contiguous ``out`` with the bytes at file address
-        ``addr``, read by the kernel straight into it (``os.preadv``)."""
-        view = memoryview(out).cast("B")
-        while len(view):
-            n = os.preadv(self._fd, [view], addr)
-            if n <= 0:
-                raise ValueError(f"{self.filename}: {len(view)} bytes at {addr} run past the "
-                                 "end of the file")
-            view, addr = view[n:], addr + n
-
     def _u(self, fmt: str, off: int) -> tuple:
         try:
             return struct.unpack_from("<" + fmt, self._mm, off)
