@@ -61,7 +61,18 @@ an output is wrong:
     widths with 100 samples each (one launch a design), TIMED_Polar once;
     the scatter voxelizer against the matmul one and the CPU; the design
     report where matplotlib is installed, else the refusals of
-    ``td-report``, ``td-predict --report`` and ``/report``.
+    ``td-report``, ``td-predict --report`` and ``/report``;
+  - HDF5 frame datasets (``check_hdf5``): ``td-voxelize``,
+    ``td-convert-dataset``, ``td-predict`` from each layout, ``fit`` from the
+    files, ``td-train`` on 1ubq;
+  - Keras ``.h5`` release files (``check_keras``): registry TIMED and
+    TIMED_rotamer written by the port's exporter, imported and held to the
+    native modules (float32, bf16 at batch 512); ``td-serve --model
+    TIMED_rotamer.h5`` with samples (codes equal to the plain version);
+    ``td-predict --path_to_model TIMED.h5`` beside ``TIMED@.npz`` and with
+    ``--quantize int8``; the TF-written fixtures against TF's predictions,
+    each int8 launch of their strided, dilated and even-kernel convolutions
+    equal to the plain version; ``td-train --init_from/--output .h5``.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2118,9 +2129,9 @@ def int8_forward_split() -> dict:
     original = layers.quantized_conv3d
     inputs = []  # (x, weight, bias, padding) of each quantized convolution
 
-    def recording(mode, xc, w, b, padding=0):
+    def recording(mode, xc, w, b, padding=0, *geometry):  # TIMED's: stride 1, no dilation
         inputs.append((xc, w, b, padding))
-        return original(mode, xc, w, b, padding)
+        return original(mode, xc, w, b, padding, *geometry)
 
     def unfused(xq, wq, padding, scale, bias=None, out_dtype=None):
         return epilogue_unfused(conv3d_int8(xq, wq, padding), scale, bias,
@@ -2971,7 +2982,7 @@ def inflate_pools(tree: Path, entries: list) -> dict:
     return out
 
 
-def check_hdf5() -> dict:
+def check_hdf5(keep_flat_bf16: Path | None = None) -> dict:
     """HDF5 frame datasets on the card, through the port's own reader and
     writer (``io/hdf5.py``; this machine has no h5py). (1) ``td-voxelize``
     of the td-predict phase's 988 frames (every NMR state) into the tree
@@ -2997,7 +3008,9 @@ def check_hdf5() -> dict:
     flat bfloat16 file (train_throughput: frames/s, busy share). (6)
     ``td-train --bf16 --lr_schedule cosine`` from a tree file of 1ubq, an
     overfit, then ``td-predict`` from its checkpoint on that file: recovery
-    of at least 0.9. No path launches the sampling kernel; only (4) the int8 one."""
+    of at least 0.9. No path launches the sampling kernel; only (4) the int8 one.
+    ``keep_flat_bf16``: where the flat bfloat16 file is moved to, for
+    check_keras, instead of being deleted with the rest."""
     import tempfile
 
     import numpy as np
@@ -3192,6 +3205,8 @@ def check_hdf5() -> dict:
         out["td_train"] = {"steps": state.step, "wall_s": train_s, "recovery": recovery}
         launches = sample_inverse_cdf.launches + sample_inverse_cdf_batched.launches
         assert launches == 0, "an HDF5 path launched the sampling kernel"
+        if keep_flat_bf16 is not None:
+            shutil.move(files["flat_bfloat16"], keep_flat_bf16)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["launches"] = launches
@@ -3199,6 +3214,292 @@ def check_hdf5() -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"hdf5: phase passed in {out['phase_s']:.1f} s; launches of the sampling kernel 0, "
         f"of conv3d_int8 {int8_launches}")
+    return out
+
+
+KERAS_FIXTURES = ROOT / "tests" / "testing_files" / "keras"
+KERAS_FIXTURE_SEED = 20261017  # tests/test_torch_keras.py::FIXTURE_SEED, the fixtures' frames
+KERAS_CONVS = 5  # convolutions of the fixtures' graph (tests/test_torch_keras.py::_geometry)
+KERAS_TRAIN_EPOCHS = 3  # td-train steps from TIMED.h5 (batch 76, 1ubq)
+
+
+def keras_release(name: str, dest: Path):
+    """Registry ``name`` with weights from SEED (BatchNorm running
+    statistics perturbed), written as ``{name}.h5`` by the port's exporter
+    and as ``{name}.npz``: (module on the CPU, the .h5, the .npz)."""
+    import types
+
+    import torch
+
+    from timed_design_tpu_torch.models import MODEL_REGISTRY, export_timed_to_h5
+    from timed_design_tpu_torch.train import save_checkpoint
+    from timed_design_tpu_torch.train.train import flax_variables
+
+    spec = MODEL_REGISTRY[name]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        module = spec.build().eval()
+        for block in module.blocks:
+            block.bn.running_mean.normal_(0.0, 0.1)
+            block.bn.running_var.uniform_(0.5, 2.0)
+    tree = flax_variables(module)
+    h5 = export_timed_to_h5(tree["params"], tree["batch_stats"], dest / f"{name}.h5",
+                            n_classes=spec.n_classes)
+    npz = dest / f"{name}.npz"
+    save_checkpoint(types.SimpleNamespace(module=module), npz)
+    return module, h5, npz
+
+
+def check_keras(flat_bf16: Path) -> dict:
+    """Keras ``.h5`` release files on the card (``models/keras_import.py``,
+    ``models/keras_export.py``). This machine has no TF: the release files
+    are written by the port's exporter, and the TF-written fixtures of
+    ``tests/testing_files/keras/`` are read. (a) Registry TIMED and
+    TIMED_rotamer from seeded weights as ``.h5`` and ``.npz``. (b) float32
+    (TF32 off) on 1ubq: the imported graph against the native module with
+    the same weights, 1e-5; the card against the CPU, 1e-4. (c) bf16 at
+    batch 512 (1ubq tiled): argmax agreement >= 0.99 with the native module.
+    (d) ``td-serve --model TIMED_rotamer.h5`` in process (bf16, batch 512)
+    answers ``/design`` on 1ubq with 100 samples: 200, one sampling launch a
+    design, codes and counts equal to the plain version on a CPU copy; warm
+    latency against the ``TIMED_rotamer@.npz`` server's (A B B A). (e)
+    ``td-predict --path_to_model TIMED.h5`` (bf16, batch 512) on the HDF5
+    phase's flat bf16 file against ``TIMED@.npz`` (after a warm-up run of
+    each, A B B A, frames/s),
+    argmax agreement >= 0.99; then ``--quantize int8``: PER_FORWARD launches
+    a batch. (f) The TF fixtures: float32 against TF's stored predictions,
+    1e-4; under ``int8`` each launch equal to ``conv3d_int8_plain`` on a CPU
+    copy (``torch.equal``), the strided, dilated and even-kernel
+    convolutions included. (g) ``td-train --bf16 --init_from TIMED.h5
+    --output out.h5`` on 1ubq; ``out.h5`` imported predicts as the trained
+    module, float32, 1e-5."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import timed_design_tpu_torch.models.quantize as quantize
+    import timed_design_tpu_torch.sample.sampler as sampler
+    from timed_design_tpu_torch.cli import train, voxelize
+    from timed_design_tpu_torch.cli.predict import main as predict_main
+    from timed_design_tpu_torch.cli.serve import build_designers, build_parser, make_server
+    from timed_design_tpu_torch.models import MODEL_REGISTRY, load_keras_model, quantized_convs
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8, conv3d_int8_plain
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_keras_", dir=ROOT))
+    sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+    conv3d_int8.launches = 0
+    out: dict = {}
+    torch.backends.cudnn.allow_tf32 = False
+
+    def forward(model, x):
+        with torch.inference_mode():
+            return model(x)
+
+    try:
+        # (a) the release files
+        native, files = {}, {}
+        for name in ("TIMED", "TIMED_rotamer"):
+            native[name], *files[name] = keras_release(name, work)
+        x = ubq_frames(76)
+        x512 = torch.cat([x] * 7)[:512]
+        # (b) float32: imported against native on the card, card against CPU
+        f32 = {}
+        for name, (h5, _) in files.items():
+            imported = load_keras_model(h5).to("cuda").eval()
+            assert imported.name == name and imported.n_classes == native[name].n_classes
+            card = forward(imported, x)
+            want = forward(copy.deepcopy(native[name]).to("cuda"), x)
+            cpu = forward(load_keras_model(h5).eval(), x.cpu())
+            f32[name] = {"imported_vs_native": float((card - want).abs().max()),
+                         "card_vs_cpu": float((card.cpu() - cpu).abs().max())}
+            assert f32[name]["imported_vs_native"] <= 1e-5, f32
+            assert f32[name]["card_vs_cpu"] <= 1e-4, f32
+            # (c) bf16 at batch 512
+            half = load_keras_model(h5, torch.bfloat16).to("cuda").eval()
+            ref = MODEL_REGISTRY[name].build(compute_dtype=torch.bfloat16)
+            ref.load_state_dict(native[name].state_dict())
+            got, base = forward(half, x512), forward(ref.to("cuda").eval(), x512)
+            f32[name]["bf16_argmax_agreement"] = float(
+                (got.argmax(1) == base.argmax(1)).float().mean())
+            assert f32[name]["bf16_argmax_agreement"] >= 0.99, f32
+        out["forward"] = f32
+        log("keras: imported registry models against the native modules (1ubq): " + "; ".join(
+            f"{n} float32 max |dp| {v['imported_vs_native']:.3g}, card against CPU "
+            f"{v['card_vs_cpu']:.3g}, bf16 batch 512 argmax agreement "
+            f"{v['bf16_argmax_agreement']:.4f}" for n, v in f32.items()))
+
+        # (d) td-serve --model TIMED_rotamer.h5, beside the npz server
+        draws = []
+        real_sample = sampler.sample_inverse_cdf
+
+        def recording(probs, n, seed, class_map=None):
+            codes, counts = real_sample(probs, n, seed, class_map)
+            draws.append((probs.cpu(), n, seed, None if class_map is None else class_map.cpu(),
+                          codes.cpu(), counts.cpu()))
+            return codes, counts
+
+        pdb = gzip.decompress(UBQ.read_bytes()).decode()
+        req = {"pdb": pdb, "n_samples": 100, "temperature": 0.2, "seed": 7}
+        h5_rot, npz_rot = files["TIMED_rotamer"]
+        latency: dict[str, list[float]] = {}
+        servers = {}
+        for tag, model in (("h5", str(h5_rot)), ("npz", f"TIMED_rotamer@{npz_rot}")):
+            designers = build_designers(build_parser().parse_args(
+                ["--model", model, "--batch_size", "512"]))
+            assert list(designers) == ["TIMED_rotamer"]
+            server = make_server(designers["TIMED_rotamer"], "127.0.0.1", 0, "TIMED_rotamer")
+            th = threading.Thread(target=server.serve_forever, daemon=True)
+            th.start()
+            servers[tag] = (designers, server, th)
+        sampler.sample_inverse_cdf = recording
+        try:
+            urls = {k: f"http://127.0.0.1:{v[1].server_address[1]}/design"
+                    for k, v in servers.items()}
+            for tag in urls:  # warm-up, not recorded
+                post(urls[tag], req)
+            draws.clear()
+            sample_inverse_cdf.launches = 0
+            bodies = {}
+            for tag in ("h5", "npz", "npz", "h5"):
+                for _ in range(3):
+                    status, body, dt = post(urls[tag], req)
+                    assert status == 200 and len(body["samples"]) == 100
+                    latency.setdefault(tag, []).append(dt)
+                    bodies.setdefault(tag, body)
+            design_launches = sample_inverse_cdf.launches
+        finally:
+            sampler.sample_inverse_cdf = real_sample
+            for designers, server, th in servers.values():
+                server.shutdown()
+                server.server_close()
+                th.join(timeout=10)
+                for des in designers.values():
+                    des.close()
+        assert design_launches == len(draws) == 12, (design_launches, len(draws))
+        for probs, n, seed, cmap, codes, counts in draws:
+            want_codes, want_counts = sample_inverse_cdf(probs, n, seed, cmap)  # the plain version
+            assert torch.equal(codes, want_codes) and torch.equal(counts, want_counts)
+        agree = float((np.array(bodies["h5"]["probabilities"]).argmax(1)
+                       == np.array(bodies["npz"]["probabilities"]).argmax(1)).mean())
+        med = {k: float(np.median(v)) for k, v in latency.items()}
+        out["serve"] = {"launches": design_launches, "latency_s": latency, "median_s": med,
+                        "argmax_agreement_h5_npz": agree}
+        log(f"keras: td-serve --model TIMED_rotamer.h5 bf16, /design 1ubq n=100: median "
+            f"{med['h5'] * 1e3:.2f} ms against TIMED_rotamer@.npz {med['npz'] * 1e3:.2f} ms "
+            f"(6 each, A B B A); {design_launches} sampling launches, codes and counts equal to "
+            f"the plain version on a CPU copy; argmax agreement {agree:.4f}; "
+            f"{gpu_name_and_power()}")
+
+        # (e) td-predict on the HDF5 phase's flat bf16 file
+        def run(model, dest, extra=()):
+            argv = ["--path_to_dataset", str(flat_bf16), "--path_to_model", model,
+                    "--batch_size", "512", "--compute_dtype", "bfloat16", "--device", "cuda",
+                    "--path_to_output", str(dest), "--path_to_datasetmap",
+                    str(dest / "datasetmap.txt"), "--is_structure_nmr", *extra]
+            result = predict_main(argv)
+            n = check_td_predict_outputs(dest, "TIMED", False, True)
+            return n, n / result.timings["predict"]
+
+        h5_timed, npz_timed = files["TIMED"]
+        for model in (str(h5_timed), f"TIMED@{npz_timed}"):  # warm-up, not recorded
+            run(model, work / f"predict_warmup_{Path(model).stem}")
+        rates: dict[str, list[float]] = {}
+        for i, (tag, model) in enumerate((("h5", str(h5_timed)), ("npz", f"TIMED@{npz_timed}"),
+                                          ("npz", f"TIMED@{npz_timed}"), ("h5", str(h5_timed)))):
+            n_frames, rate = run(model, work / f"predict_{tag}_{i}")
+            rates.setdefault(tag, []).append(rate)
+        agree = float((argmax_rows(work / "predict_h5_0", "TIMED")
+                       == argmax_rows(work / "predict_npz_1", "TIMED")).mean())
+        assert agree >= 0.99, f"td-predict .h5 against .npz: argmax agreement {agree:.4f}"
+        conv3d_int8.launches = 0
+        _, int8_rate = run(str(h5_timed), work / "predict_h5_int8", ["--quantize", "int8"])
+        batches = -(-n_frames // 512)
+        predict_int8_launches = conv3d_int8.launches
+        assert predict_int8_launches == PER_FORWARD * batches, predict_int8_launches
+        out["td_predict"] = {"frames": n_frames, "frames_per_s": rates,
+                             "argmax_agreement_h5_npz": agree, "int8_frames_per_s": int8_rate,
+                             "int8_launches": predict_int8_launches}
+        log(f"keras: td-predict bf16 from the flat bf16 file ({n_frames} frames, batch 512): "
+            f"TIMED.h5 {', '.join(f'{r:.0f}' for r in rates['h5'])} frames/s against TIMED@.npz "
+            f"{', '.join(f'{r:.0f}' for r in rates['npz'])} (A B B A); argmax agreement "
+            f"{agree:.4f}; --quantize int8 with TIMED.h5 {int8_rate:.0f} frames/s, "
+            f"{predict_int8_launches} conv3d_int8 launches ({batches} batches); "
+            f"{gpu_name_and_power()}")
+
+        # (f) the TF-written fixtures
+        calls = []
+
+        def record(xq, wq, padding=0, scale=None, bias=None, out_dtype=None):
+            y = conv3d_int8(xq, wq, padding, scale, bias, out_dtype)
+            calls.append([t.cpu() if isinstance(t, torch.Tensor) else t
+                          for t in (xq, wq, padding, scale, bias, out_dtype, y)])
+            return y
+
+        xf = torch.from_numpy(np.random.default_rng(KERAS_FIXTURE_SEED).random(
+            (4, 21, 21, 21, 5), np.float32)).to("cuda")
+        fixtures = {}
+        conv3d_int8.launches = 0
+        for path in sorted(KERAS_FIXTURES.glob("*.h5")):
+            model = load_keras_model(path).to("cuda").eval()
+            stored = torch.from_numpy(np.load(path.with_suffix(".npy")))
+            err = float((forward(model, xf).cpu() - stored).abs().max())
+            assert err <= 1e-4, f"{path.name}: {err:.3g} from TF's predictions"
+            quantize.conv3d_int8 = record
+            try:
+                with quantized_convs("int8"):
+                    q = forward(model, xf)
+            finally:
+                quantize.conv3d_int8 = conv3d_int8
+            shapes = []
+            for xq, wq, padding, scale, bias, out_dtype, y in calls:
+                want = conv3d_int8_plain(xq, wq, padding, scale, bias, out_dtype)
+                assert torch.equal(y, want), (path.name, tuple(xq.shape), tuple(wq.shape))
+                shapes.append([list(xq.shape), list(wq.shape), padding])
+            assert len(calls) == KERAS_CONVS, len(calls)
+            calls.clear()
+            fixtures[path.name] = {"max_abs_err_f32": err, "int8_calls_equal_to_plain": shapes,
+                                   "int8_max_abs_dp": float((q.cpu() - stored).abs().max())}
+        fixture_launches = conv3d_int8.launches
+        assert len(fixtures) == 2 and fixture_launches == 2 * KERAS_CONVS, fixture_launches
+        out["fixtures"] = fixtures
+        log("keras: the TF fixtures on the card, float32 against TF's predictions: " + ", ".join(
+            f"{k} {v['max_abs_err_f32']:.3g}" for k, v in fixtures.items())
+            + f"; int8: {fixture_launches} launches, each equal to the plain version on a CPU "
+            "copy (kernel inputs (B, D, H, W, C) after the rewrite, weights, padding): "
+            + json.dumps({k: v["int8_calls_equal_to_plain"] for k, v in fixtures.items()}))
+
+        # (g) td-train --init_from TIMED.h5 --output out.h5
+        ubq, _ = voxelize.main([str(UBQ), "-n", "ubq", "-o", str(work)])
+        trained_h5 = work / "trained.h5"
+        t0 = time.perf_counter()
+        state = train.main(["--path_to_dataset", str(ubq), "--model", "TIMED", "--bf16",
+                            "--batch_size", "76", "--epochs", str(KERAS_TRAIN_EPOCHS),
+                            "--init_from", str(h5_timed), "--output", str(trained_h5)])
+        train_s = time.perf_counter() - t0
+        trained = MODEL_REGISTRY["TIMED"].build()
+        trained.load_state_dict(state.module.state_dict())
+        err = float((forward(load_keras_model(trained_h5).to("cuda").eval(), x)
+                     - forward(trained.to("cuda").eval(), x)).abs().max())
+        moved = float((state.module.blocks[0].conv.weight.detach().cpu()
+                       - native["TIMED"].blocks[0].conv.weight.detach()).abs().max())
+        assert err <= 1e-5 and moved > 0, (err, moved)
+        out["td_train"] = {"steps": state.step, "wall_s": train_s, "max_abs_dp": err}
+        log(f"keras: td-train --bf16 --init_from TIMED.h5 --output trained.h5, {state.step} "
+            f"steps on 1ubq in {train_s:.1f} s; trained.h5 imported against the trained module, "
+            f"float32: max |dp| {err:.3g}")
+        assert sample_inverse_cdf_batched.launches == 0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        flat_bf16.unlink(missing_ok=True)
+    out["launches"] = design_launches
+    out["int8_launches"] = predict_int8_launches + fixture_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"keras: phase passed in {out['phase_s']:.1f} s; launches of the sampling kernel "
+        f"{out['launches']}, of conv3d_int8 {out['int8_launches']}")
     return out
 
 
@@ -3296,21 +3597,25 @@ def main() -> int:
     train = check_train()
     assert conv3d_int8.launches == 0, "an unquantized path launched the int8 kernel"
     quantize = check_quantize()
-    hdf5 = check_hdf5()
+    flat_bf16 = ROOT / f".chip_smoke_keras_flat_bf16_{os.getpid()}.hdf5"
+    hdf5 = check_hdf5(keep_flat_bf16=flat_bf16)
+    keras = check_keras(flat_bf16)
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
                     "td_predict": td_predict, "analyse": analyse, "properties": properties,
-                    "train": train, "quantize": quantize, "hdf5": hdf5}))
+                    "train": train, "quantize": quantize, "hdf5": hdf5, "keras": keras}))
     main_shape = kernel["shapes"][0]
     # TIMED's 64 -> 128 block: the largest of its int8 convolutions
     conv_main = quantize["kernel"]["per_shape"][3]
     # td-predict, training and the HDF5 flow reach no TPU kernel (voxelizer
     # and convs are plain torch); the analysis reaches the sampler through its
-    # sweep, and property-constrained design through each design's samples
+    # sweep, property-constrained design and the Keras phase's /design through
+    # each design's samples
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
                 "families": families["launches"], "td_predict": td_predict["launches"],
                 "analyse": analyse["launches"], "properties": properties["launches"],
-                "train": train["launches"], "hdf5": hdf5["launches"]}
-    int8_launches = {**quantize["launches"], "hdf5": hdf5["int8_launches"]}
+                "train": train["launches"], "hdf5": hdf5["launches"], "keras": keras["launches"]}
+    int8_launches = {**quantize["launches"], "hdf5": hdf5["int8_launches"],
+                     "keras": keras["int8_launches"]}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",

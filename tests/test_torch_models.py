@@ -108,7 +108,7 @@ def test_checkpoint_roundtrip_from_jax_save(tmp_path):
     np.testing.assert_allclose(got, np.asarray(fm.apply(v, x)), atol=1e-5)
 
 
-def test_registry_names_and_refusals():
+def test_registry_names_and_refusals(tmp_path):
     from timed_design_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
 
     from timed_design_tpu_torch.engine.predictor import _resolve_model
@@ -129,8 +129,19 @@ def test_registry_names_and_refusals():
         assert type(m).__name__ == cls and m.n_classes == 20
     assert len(MODEL_REGISTRY["DenseNet"].build().layers) == 12
     assert len(MODEL_REGISTRY["DenseCPD"].build().layers) == 18
-    with pytest.raises(NotImplementedError, match="keras_import"):
+    # a Keras path: FileNotFoundError where it is missing (as the JAX
+    # package's load_model), else the graph it stores, named by its stem
+    with pytest.raises(FileNotFoundError, match="weights/TIMED.h5"):
         load_model("weights/TIMED.h5")
+    from timed_design_tpu_torch.models import KerasH5Model, export_timed_to_h5, timed
+    from timed_design_tpu_torch.train.train import flax_variables
+
+    tree = flax_variables(timed(filters=(4,)))
+    h5 = export_timed_to_h5(tree["params"], tree["batch_stats"], tmp_path / "TIMED.h5")
+    imported = load_model(h5)
+    assert isinstance(imported, KerasH5Model) and imported.name == "TIMED"
+    assert imported.n_classes == 20 and imported.compute_dtype == torch.float32
+    assert load_model(h5, compute_dtype=torch.bfloat16).compute_dtype == torch.bfloat16
     assert get_model_spec("timed_rotamer").name == "TIMED_rotamer"
     with pytest.raises(KeyError, match="Known"):
         get_model_spec("nope")

@@ -5,13 +5,16 @@ frame dataset or from PDB files:
         --path_to_dataset frames.hdf5 --path_to_model TIMED@ckpt.npz \\
         --path_to_output out/
     python -m timed_design_tpu_torch.cli.predict --voxelize \\
-        --path_to_dataset structures/ --path_to_model TIMED@ckpt.npz \\
+        --path_to_dataset structures/ --path_to_model TIMED.h5 \\
         --path_to_output out/
 
 An ``.hdf5``/``.h5`` dataset (tree or flat layout, as ``td-voxelize``,
 ``td-convert-dataset`` or aposteriori write it) is read in batches on the
 host; PDB file(s) with ``--voxelize`` are parsed and their frames voxelized
-on the device batch by batch. Every model runs on each batch, and the run
+on the device batch by batch. A model is a Keras ``.h5`` release file (its
+stored graph, ``models/keras_import.py``, named by the file's stem),
+``Name@checkpoint.npz``, or a registry name with ``--allow-random-weights``.
+Every model runs on each batch, and the run
 writes the JAX package's artifacts:
 ``{model}.csv`` (``{model}_rot.csv`` too with ``--predict_rotamers``),
 ``{model}.fasta``, the SRB map ``{model}.txt``, ``dataset.fasta``,
@@ -50,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "them with --voxelize")
     p.add_argument("--path_to_datasetmap", type=str, default="datasetmap.txt")
     p.add_argument("--path_to_model", type=str, nargs="+", required=True,
-                   help="Registry name(s) or Name@checkpoint.npz: TIMED, ProDCoNN, ...")
+                   help="Model .h5 path(s), Name@checkpoint.npz, or registry name(s): "
+                        "TIMED, ProDCoNN, ...")
     p.add_argument("--path_to_blacklist", type=str, default=None,
                    help="Directory of .txt files listing PDB codes to leave out")
     p.add_argument("--path_to_output", type=str, default=".")
@@ -91,7 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Permit bare registry names with no weights "
                         "(randomly initialized — benchmarking only). "
                         "Without this flag, a model given as a registry "
-                        "name must carry weights via Name@ckpt.npz.")
+                        "name must carry weights via .h5 or Name@ckpt.npz.")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu only when named)")
     return p

@@ -1,6 +1,6 @@
 """Sequence design over HTTP, on PyTorch (the port of ``td-serve``).
 
-    python -m timed_design_tpu_torch.cli.serve --model TIMED@ckpt.npz --port 8080
+    python -m timed_design_tpu_torch.cli.serve --model TIMED.h5 --port 8080
 
 The model loads once at startup onto ``--device`` (default ``cuda``; the
 server exits with a message when there is no card, and runs on the CPU only
@@ -43,9 +43,10 @@ import torch
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Serve sequence design over HTTP")
     p.add_argument("--model", type=str, required=True, action="append",
-                   help="Name@checkpoint.npz, or a registry name with "
-                        "--allow-random-weights. Repeatable: requests pick "
-                        'one with a "model" field (default: the first)')
+                   help=".h5 weights, Name@checkpoint.npz, or registry name "
+                        "with --allow-random-weights. Repeatable: every "
+                        "model loads at startup, requests pick one with a "
+                        '"model" field (default: the first)')
     p.add_argument("--codec", type=str, default=None)
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)

@@ -8,10 +8,13 @@ The dataset (tree or flat layout) is read by ``io/h5frames.py::
 FrameBatchLoader``, shuffled every epoch from ``--seed``, and fed to
 ``train/train.py::fit``; ``--val_fraction`` holds whole structures out. The
 checkpoint is the JAX package's npz: ``MODEL@ckpt.npz`` loads in either
-package's ``td-predict``. The JAX CLI's flags plus ``--device`` (default
+package's ``td-predict``. A Keras ``.h5`` ``--init_from`` (the TIMED
+family) warm-starts from a release file (``models/keras_import.py::
+import_timed_params``); a ``.h5`` ``--output`` writes one
+(``models/keras_export.py``), for the TIMED family only: another model is
+refused before training. The JAX CLI's flags plus ``--device`` (default
 ``cuda``; without a card it exits with a message, and runs on the CPU only
-with ``--device cpu``). Keras ``.h5`` weights, as ``--init_from`` or
-``--output``, wait for the port of the Keras importer and exporter.
+with ``--device cpu``).
 """
 from __future__ import annotations
 
@@ -20,8 +23,7 @@ from pathlib import Path
 
 import torch
 
-KERAS_WAITING = ("Keras .h5 weights are not supported by the PyTorch port yet "
-                 "(ROADMAP, Queue 1: Keras .h5 import and export, models/keras_import.py)")
+KERAS_SUFFIXES = (".h5", ".hdf5")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "for short runs, so that evaluation-mode statistics converge)")
     p.add_argument("--output", type=str, default="checkpoint.npz")
     p.add_argument("--init_from", type=str, default=None,
-                   help="Warm-start weights: a td-train checkpoint .npz")
+                   help="Warm-start weights: a td-train checkpoint .npz, or a Keras "
+                        "release .h5 (TIMED family)")
     p.add_argument("--val_fraction", type=float, default=0.0,
                    help="Fraction of STRUCTURES (not residues) held out for "
                         "validation; evaluation-mode metrics print per epoch")
@@ -98,17 +101,15 @@ def main(argv=None):
     if args.patience is not None and args.val_fraction <= 0:
         raise SystemExit("--patience requires --val_fraction > 0")
     out = Path(args.output)
-    for flag, path in (("--output", out), ("--init_from", args.init_from)):
-        if path is not None and Path(path).suffix.lower() in (".h5", ".hdf5"):
-            raise SystemExit(f"{flag} {path}: {KERAS_WAITING}; use a .npz checkpoint")
     from ..io import (
         FrameBatchLoader,
         FrameDatasetMetadata,
         create_flat_dataset_map,
         split_dataset_map,
     )
-    from ..models import get_model_spec
+    from ..models import TIMED, export_timed_to_h5, get_model_spec
     from ..train import balanced_class_weights, fit, load_checkpoint_params, save_checkpoint
+    from ..train.train import flax_variables
 
     dataset = Path(args.path_to_dataset)
     spec = get_model_spec(args.model)
@@ -148,8 +149,15 @@ def main(argv=None):
               f"(min {lo:.3f} / max {hi:.3f})")
     init_weights = None
     if args.init_from:
-        init_weights = load_checkpoint_params(args.init_from)
-        print(f"warm start: loaded checkpoint weights from {args.init_from}")
+        src = Path(args.init_from)
+        if src.suffix.lower() in KERAS_SUFFIXES:
+            from ..models import import_timed_params
+
+            init_weights = import_timed_params(src)
+            print(f"warm start: imported Keras release weights from {src}")
+        else:
+            init_weights = load_checkpoint_params(src)
+            print(f"warm start: loaded checkpoint weights from {src}")
     build_kw: dict = {}
     if args.bf16:
         build_kw["compute_dtype"] = torch.bfloat16
@@ -165,6 +173,11 @@ def main(argv=None):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)  # the initial weights, from --seed as in the JAX CLI
         module = _build(spec, args, build_kw)
+    export_h5 = out.suffix.lower() in KERAS_SUFFIXES
+    if export_h5 and not isinstance(module, TIMED):  # before training, not after
+        raise SystemExit(f"--output {out.name}: Keras .h5 export covers the linear TIMED "
+                         f"family only; {args.model} has a different parameter tree — use "
+                         "a .npz output and MODEL@ckpt.npz in predict")
     state = fit(
         module,
         loader,
@@ -182,6 +195,13 @@ def main(argv=None):
         class_weights=class_weights,
         device=args.device,
     )
+    if export_h5:
+        # the release format: loads in the JAX package, TF's Keras and the port
+        variables = flax_variables(state.module)
+        export_timed_to_h5(variables["params"], variables["batch_stats"], out,
+                           n_classes=spec.n_classes, input_channels=meta.frame_dims[-1])
+        print(f"Exported Keras release-format h5 to {out} after {int(state.step)} steps")
+        return state
     # architecture overrides (not runtime knobs like compute_dtype), so that
     # Name@ckpt.npz rebuilds the trained module
     arch_kw = {k: v for k, v in build_kw.items() if k != "compute_dtype"}

@@ -43,6 +43,7 @@ from ..io import (
 from ..io.h5frames import _index_columns, _is_flat_layout
 from ..io.h5frames import create_flat_dataset_map as h5_dataset_map
 from ..models import (
+    KerasH5Model,
     ModelSpec,
     get_model_spec,
     load_checkpoint_build_kwargs,
@@ -155,11 +156,14 @@ class Predictor:
 
 def _resolve_model(m, compute_dtype: torch.dtype | None = None,
                    allow_random_weights: bool = False) -> tuple[nn.Module, str]:
-    """Module -> itself; "Name@ckpt.npz" -> the registry architecture with
-    the checkpoint's weights, converted by its family's converter
-    (``ModelSpec.convert``); bare registry name -> random weights, refused
-    unless ``allow_random_weights`` (benchmarks and tests only: random
-    predictions cannot be told from real ones)."""
+    """Module -> itself (a ``KerasH5Model`` named by its file's stem); a
+    Keras ``.h5``/``.hdf5`` path -> the graph it stores, in
+    ``compute_dtype`` (float32 when None), named by the file's stem;
+    "Name@ckpt.npz" -> the registry architecture with the checkpoint's
+    weights, converted by its family's converter (``ModelSpec.convert``);
+    bare registry name -> random weights, refused unless
+    ``allow_random_weights`` (benchmarks and tests only: random predictions
+    cannot be told from real ones)."""
     if isinstance(m, nn.Module):
         return m, getattr(m, "name", None) or "model"
     kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
@@ -170,12 +174,15 @@ def _resolve_model(m, compute_dtype: torch.dtype | None = None,
         sd = spec.convert(load_checkpoint_params(ckpt))
         module.load_state_dict(sd)
         return module, spec.name
-    spec: ModelSpec = load_model(m)
+    resolved = load_model(m, compute_dtype=compute_dtype)
+    if isinstance(resolved, KerasH5Model):
+        return resolved, resolved.name
+    spec: ModelSpec = resolved
     if not allow_random_weights:
         raise ValueError(
             f"model {str(m)!r} resolves to registry architecture "
             f"{spec.name!r} with NO weights — predictions would be random "
-            "garbage. Pass a 'Name@checkpoint.npz', or set "
+            "garbage. Pass a .h5 weights file, a 'Name@checkpoint.npz', or set "
             "allow_random_weights=True (--allow-random-weights on the CLI) "
             "for benchmarking."
         )

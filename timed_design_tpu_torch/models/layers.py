@@ -6,7 +6,8 @@ as NCDHW without a copy (the channels_last_3d memory format). Parameters
 are float32 and are cast to the compute dtype at each call, as Flax's
 ``dtype``/``param_dtype`` pair does. BatchNorm, pooling and the heads run in
 float32 (``at_least_float32``), or in float64 for a float64 module. Every
-convolution of the zoo goes through ``conv3d``, which runs the mode of
+convolution of the zoo and of the Keras graph executor
+(``models/keras_import.py``) goes through ``conv3d``, which runs the mode of
 ``models/quantize.py::quantized_convs`` when one is set.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .quantize import current_mode, quantized_conv3d
+from .quantize import Padding, current_mode, float_conv3d, quantized_conv3d
 
 
 class BatchNorm3d(nn.BatchNorm3d):
@@ -76,16 +77,20 @@ class ConvBlock(nn.Module):
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-           padding: int = 0) -> torch.Tensor:
+           padding: Padding = 0, stride=1, dilation=1, name: str | None = None) -> torch.Tensor:
     """The zoo's convolution: ``x`` (B, C, D, H, W) with ``weight`` and
-    ``bias`` cast to ``x``'s dtype, stride 1; quantized when a mode of
-    ``quantized_convs`` is set on this thread."""
+    ``bias`` cast to ``x``'s dtype; quantized when a mode of
+    ``quantized_convs`` is set on this thread. ``padding``: an int, three
+    ints, or three (lo, hi) pairs (an asymmetric one is padded with zeros
+    first); ``stride`` and ``dilation``: an int or three ints. ``name`` (the
+    layer) goes into the error of a convolution the int8 kernel cannot
+    take."""
     w = weight.to(x.dtype)
     b = None if bias is None else bias.to(x.dtype)
     mode = current_mode()
     if mode is None:
-        return F.conv3d(x, w, b, padding=padding)
-    return quantized_conv3d(mode, x, w, b, padding)
+        return float_conv3d(x, w, b, padding, stride, dilation)
+    return quantized_conv3d(mode, x, w, b, padding, stride, dilation, name)
 
 
 def cast_conv(conv: nn.Conv3d, x: torch.Tensor, padding: int = 0) -> torch.Tensor:

@@ -1,15 +1,17 @@
 """Model zoo registry: name -> PyTorch constructor, default codec and the
 converter of its Flax weights.
 
-The port of ``timed_design_tpu/models/registry.py``: every name builds.
-Keras ``.h5`` weights wait for the port of the Keras importer (ROADMAP,
-Queue 1).
+The port of ``timed_design_tpu/models/registry.py``: every name builds,
+and ``load_model`` resolves a Keras ``.h5`` release file to the graph it
+stores (``models/keras_import.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import typing as t
 from pathlib import Path
+
+import torch
 
 from ..voxel.codec import Codec
 from .convert import (
@@ -74,13 +76,16 @@ def get_model_spec(name: str) -> ModelSpec:
     raise KeyError(f"Unknown model {name!r}. Known: {', '.join(MODEL_REGISTRY)}")
 
 
-def load_model(path_or_name: t.Union[str, Path]) -> ModelSpec:
-    """Resolve a registry name. Keras ``.h5``/``.hdf5`` paths raise until
-    the Keras importer is ported."""
-    if Path(path_or_name).suffix.lower() in (".h5", ".hdf5"):
-        raise NotImplementedError(
-            f"{path_or_name}: Keras .h5 weights are not supported by the "
-            "PyTorch port yet (ROADMAP, Queue 1: models/keras_import.py); "
-            "use 'Name@checkpoint.npz'"
-        )
+def load_model(path_or_name: t.Union[str, Path], compute_dtype=None):
+    """Resolve a model: a ``.h5``/``.hdf5`` path -> the imported Keras graph
+    (``KerasH5Model``, float32 unless ``compute_dtype`` says otherwise); a
+    name -> its ``ModelSpec``. A Keras path that does not exist raises
+    ``FileNotFoundError``, not the registry's 'Unknown model' ``KeyError``."""
+    p = Path(path_or_name)
+    if p.suffix.lower() in (".h5", ".hdf5"):
+        if not p.exists():
+            raise FileNotFoundError(f"model weights file not found: {p}")
+        from .keras_import import load_keras_model
+
+        return load_keras_model(p, compute_dtype=compute_dtype or torch.float32)
     return get_model_spec(str(path_or_name))
