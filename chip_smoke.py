@@ -72,7 +72,13 @@ an output is wrong:
     ``td-predict --path_to_model TIMED.h5`` beside ``TIMED@.npz`` and with
     ``--quantize int8``; the TF-written fixtures against TF's predictions,
     each int8 launch of their strided, dilated and even-kernel convolutions
-    equal to the plain version; ``td-train --init_from/--output .h5``.
+    equal to the plain version; ``td-train --init_from/--output .h5``;
+  - the Streamlit design app (``check_ui``), driven through a recording
+    stand-in for streamlit at registry widths from ``.h5`` files: the
+    design page with Monte-Carlo (one sampling launch a page, held to the
+    plain version), a rerun from the design cache, NMR consensus, an
+    ensemble, property-constrained design, and the script's start as
+    ``streamlit run`` starts it.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3223,10 +3229,11 @@ KERAS_CONVS = 5  # convolutions of the fixtures' graph (tests/test_torch_keras.p
 KERAS_TRAIN_EPOCHS = 3  # td-train steps from TIMED.h5 (batch 76, 1ubq)
 
 
-def keras_release(name: str, dest: Path):
-    """Registry ``name`` with weights from SEED (BatchNorm running
-    statistics perturbed), written as ``{name}.h5`` by the port's exporter
-    and as ``{name}.npz``: (module on the CPU, the .h5, the .npz)."""
+def keras_release(name: str, dest: Path, seed: int = SEED, stem: str | None = None):
+    """Registry ``name`` with weights from ``seed`` (BatchNorm running
+    statistics perturbed), written as ``{stem}.h5`` by the port's exporter
+    and as ``{stem}.npz`` (``stem`` defaults to ``name``): (module on the
+    CPU, the .h5, the .npz)."""
     import types
 
     import torch
@@ -3236,16 +3243,17 @@ def keras_release(name: str, dest: Path):
     from timed_design_tpu_torch.train.train import flax_variables
 
     spec = MODEL_REGISTRY[name]
+    stem = stem or name
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(SEED)
+        torch.manual_seed(seed)
         module = spec.build().eval()
         for block in module.blocks:
             block.bn.running_mean.normal_(0.0, 0.1)
             block.bn.running_var.uniform_(0.5, 2.0)
     tree = flax_variables(module)
-    h5 = export_timed_to_h5(tree["params"], tree["batch_stats"], dest / f"{name}.h5",
+    h5 = export_timed_to_h5(tree["params"], tree["batch_stats"], dest / f"{stem}.h5",
                             n_classes=spec.n_classes)
-    npz = dest / f"{name}.npz"
+    npz = dest / f"{stem}.npz"
     save_checkpoint(types.SimpleNamespace(module=module), npz)
     return module, h5, npz
 
@@ -3503,6 +3511,388 @@ def check_keras(flat_bf16: Path) -> dict:
     return out
 
 
+UI_UPLOAD = "Upload your backbone/PDB of interest"
+UI_PROMPT = "Upload a backbone (or give a PDB code) and press Design!"
+# The figures of a design page: the CA trace (py3Dmol is missing), the
+# heatmap, the 338-class chart of a rotamer head, the logo, the confusion matrix.
+UI_FIGURES = {False: 4, True: 5}
+
+
+class _PageCtx:
+    """What a layout element returns: a context manager whose attributes
+    are the recorder's (``col.metric(...)``)."""
+
+    def __init__(self, st):
+        self._st = st
+
+    def __enter__(self):
+        return self._st
+
+    def __exit__(self, *a):
+        return False
+
+    def __getattr__(self, name):
+        return getattr(self._st, name)
+
+
+class PageUpload:
+    """An uploaded file as streamlit hands it over: a name and its bytes."""
+
+    def __init__(self, path: Path):
+        self.name = path.name
+        self._data = path.read_bytes()
+
+    def read(self):
+        return self._data
+
+
+class PageRecorder:
+    """A stand-in for streamlit (the card's machine has none), as
+    ``timed_design_tpu_torch/ui.py`` calls it: widgets answer from
+    ``responses`` or their default, every call is recorded as (kind, its
+    text or None), and the Monte-Carlo tables are kept. ``session_state``
+    passed on from one page to the next is a rerun of one browser session."""
+
+    def __init__(self, responses=None, session_state=None):
+        import types
+
+        self.responses = dict(responses or {})
+        self.session_state = {} if session_state is None else session_state
+        self.calls: list = []
+        self.tables: list = []
+        self.sidebar = _PageCtx(self)
+        self.components = types.SimpleNamespace(v1=types.SimpleNamespace(
+            html=lambda *a, **k: self.calls.append(("html", None))))
+
+    def _widget(self, kind, label, default):
+        self.calls.append((kind, label))
+        return self.responses.get(label, default)
+
+    def text_input(self, label, value="", **k):
+        return self._widget("text_input", label, value)
+
+    def file_uploader(self, label, **k):
+        return self._widget("file_uploader", label, None)
+
+    def selectbox(self, label, options, **k):
+        value = self._widget("selectbox", label, list(options)[0])
+        assert value in list(options), (value, list(options))
+        return value
+
+    def multiselect(self, label, options, default=None, **k):
+        return self._widget("multiselect", label, default or [])
+
+    def checkbox(self, label, value=False, **k):
+        return self._widget("checkbox", label, value)
+
+    def number_input(self, label, lo=None, hi=None, value=None, **k):
+        return self._widget("number_input", label, value)
+
+    def slider(self, label, lo=None, hi=None, value=None, **k):
+        return self._widget("slider", label, value)
+
+    def button(self, label, **k):
+        return self._widget("button", label, False)
+
+    def dataframe(self, data, **k):
+        self.calls.append(("dataframe", None))
+        self.tables.append(dict(data))
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+
+        def element(*args, **kwargs):
+            self.calls.append((name, args[0] if args and isinstance(args[0], str) else None))
+            if name == "columns":
+                return [_PageCtx(self) for _ in range(args[0])]
+            if name == "tabs":
+                return [_PageCtx(self) for _ in args[0]]
+            return _PageCtx(self)
+
+        return element
+
+    def kinds(self) -> list:
+        return [k for k, _ in self.calls]
+
+    def texts(self, kind: str) -> list:
+        return [a for k, a in self.calls if k == kind]
+
+
+def ui_figures_in_place(rec: PageRecorder, rotamer: bool) -> int:
+    """(g): every figure of the page drawn, or in its place one error naming
+    matplotlib; no other error. Returns the errors naming matplotlib."""
+    errors = rec.texts("error")
+    named = [e for e in errors if "matplotlib" in e]
+    assert named == errors, f"the page showed another error: {errors}"
+    assert len(named) + rec.kinds().count("pyplot") == UI_FIGURES[rotamer], rec.calls
+    return len(named)
+
+
+def check_ui() -> dict:
+    """The Streamlit design app (``timed_design_tpu_torch/ui.py``) on the
+    card, through ``PageRecorder`` installed as ``sys.modules["streamlit"]``
+    (removed afterwards). Registry-width ``TIMED.h5``, ``TIMED_rotamer.h5``
+    and a second 20-class ``OTHER.h5`` (weights from SEED and SEED + 1,
+    written by ``keras_release``) in a ``--path_to_models``; the app's
+    defaults, ``--device cuda`` and batch 512. (a) 1ubq uploaded,
+    ``TIMED_rotamer.h5``, Monte-Carlo on (200 samples, T 0.2): a cold page,
+    then 5 warm ones (the design cache emptied before each): the page's
+    probabilities equal to a new ``DesignSession`` on the card on the same
+    file, one sampling launch a page, codes and counts equal to the plain
+    version on a CPU copy, the table the ranking of ``sample_structure(...,
+    seed 0)`` on the card. (b) A rerun with the button off: no forward, one
+    cached design, one more launch. (c) A two-state NMR file with
+    ``TIMED.h5``: the consensus of the two states designed directly. (d)
+    ``TIMED.h5`` + ``OTHER.h5``: the page's matrix within 2e-6 of the
+    members' float64 mean. (e) ``TIMED_Charge`` in demo mode, default charge
+    map, Monte-Carlo on: one launch; the rewritten structure's Q channel on
+    the card against the CPU's (1e-5) and the page's probabilities equal to
+    the session's design of it. (f) The script run as ``streamlit run``
+    runs it (``runpy``, ``__main__``): the idle prompt. (g) On every design
+    page each figure is drawn or has one error naming matplotlib in its
+    place, and no other error is shown."""
+    import copy
+    import re
+    import runpy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import timed_design_tpu_torch.sample.sampler as sampler
+    from timed_design_tpu_torch.engine import DesignSession
+    from timed_design_tpu_torch.io.decode import consensus_running_average
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.sample.metrics import sequence_metrics
+    from timed_design_tpu_torch.structure import (
+        convert_seq_to_property,
+        create_residue_map,
+        load_pdb,
+        modify_structure_with_property,
+        parse_pdb_string,
+    )
+    from timed_design_tpu_torch.voxel import structure_to_frame_atoms, voxelize_frame_atoms
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_ui_", dir=ROOT))
+    models = work / "models"
+    models.mkdir()
+    keras_release("TIMED_rotamer", models)
+    keras_release("TIMED", models)
+    keras_release("TIMED", models, seed=SEED + 1, stem="OTHER")
+    argv = ["--path_to_models", str(models)]
+    saved_streamlit = sys.modules.get("streamlit")
+    sys.modules["streamlit"] = PageRecorder()
+    import timed_design_tpu_torch.ui as ui
+
+    draws = []
+    real_sample = sampler.sample_inverse_cdf
+
+    def recording(probs, n, seed, class_map=None):
+        codes, counts = real_sample(probs, n, seed, class_map)
+        draws.append((probs.cpu(), n, seed, None if class_map is None else class_map.cpu(),
+                      codes.cpu(), counts.cpu()))
+        return codes, counts
+
+    # host seconds of each section of the last page (the sections end on the
+    # host: the samples and the metric passes are copied back)
+    sections = ("_draw_structure_view", "_draw_output_section", "_draw_performance_section",
+                "_draw_optimisation_section")
+    real_sections = {name: getattr(ui, name) for name in sections}
+    section_s: dict = {}
+
+    def timed(name):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            real_sections[name](*args, **kwargs)
+            section_s[name.removeprefix("_draw_")] = time.perf_counter() - t0
+        return run
+
+    launches: dict = {}
+    out: dict = {}
+
+    def page(flow, responses, state):
+        """One run of the page: (recorder, host seconds around main()); the
+        sampling launches it made are added to the flow's."""
+        rec = PageRecorder(responses, state)
+        ui.st = rec
+        section_s.clear()
+        sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+        t0 = time.perf_counter()
+        ui.main(list(argv))
+        wall = time.perf_counter() - t0
+        assert sample_inverse_cdf_batched.launches == 0
+        launches[flow] = launches.get(flow, 0) + sample_inverse_cdf.launches
+        return rec, wall
+
+    def design_entry(state):
+        (entry,) = state["design_cache"].values()
+        return entry
+
+    sampler.sample_inverse_cdf = recording
+    for name in sections:
+        setattr(ui, name, timed(name))
+    try:
+        # (a) the main design flow, cold then warm
+        mc = {"Optimize sequences using Monte Carlo": True, "Number of samples": 200,
+              "Temperature": 0.2}
+        a = {UI_UPLOAD: PageUpload(UBQ), "Choose your Model": "TIMED_rotamer", "Design!": True,
+             **mc}
+        state: dict = {}
+        rec, cold_s = page("a", a, state)
+        session = state[f"session::{models / 'TIMED_rotamer.h5'}"]
+        assert session.device.type == "cuda" and launches["a"] == 1
+        warm = []
+        for _ in range(5):
+            state["design_cache"].clear()
+            draws.clear()
+            rec, wall = page("a", a, state)
+            line = rec.texts("success")[0]
+            warm.append({"success_line_s": float(re.search(r" in ([0-9.]+)s", line).group(1)),
+                         "voxelisation_s": session.last_timings["voxelisation"],
+                         "prediction_s": session.last_timings["prediction"],
+                         "page_s": wall, **{f"{k}_s": v for k, v in section_s.items()}})
+        assert launches["a"] == 6 and len(draws) == 1
+        ui_figures_in_place(rec, rotamer=True)
+        (probs,), native, _ = design_entry(state)
+        direct = DesignSession(str(models / "TIMED_rotamer.h5"), codec="CNOCACB",
+                               batch_size=512, device="cuda")
+        want = direct.design(load_pdb(UBQ))[0].astype(np.float32)
+        assert probs.shape == (76, 338) and np.array_equal(probs, want), \
+            float(np.abs(probs - want).max())
+        p, n, seed, cmap, codes, counts = draws[0]
+        assert (n, seed) == (200, 0) and cmap is not None
+        want_codes, want_counts = sample_inverse_cdf(p, n, seed, cmap)  # the plain version
+        assert torch.equal(codes, want_codes) and torch.equal(counts, want_counts)
+        samples = sampler.sample_structure(probs, 200, 0, rotamer_mode=True, temperature=0.2,
+                                           device="cuda")
+        ref = np.array(sequence_metrics(native))
+        mae = [np.abs((np.array(s[1:]) - ref) / np.where(ref == 0, 1, ref)).sum()
+               for s in samples]
+        order = np.argsort(mae, kind="stable")[:25]
+        table = rec.tables[-1]
+        assert table["sequence"] == [samples[i][0] for i in order]
+        assert table["MAE"] == [mae[i] for i in order]
+        out["a"] = {"cold_page_s": cold_s, "warm": warm}
+        med = {k: float(np.median([w[k] for w in warm])) for k in warm[0]}
+        out["a"]["warm_median"] = med
+        log(f"ui (a): 1ubq, TIMED_rotamer.h5 bf16 batch 512, Monte-Carlo 200 samples T 0.2: "
+            f"cold page {cold_s:.3f} s; warm (median of 5): success line "
+            f"{med['success_line_s']:.2f} s, voxelisation "
+            f"{med['voxelisation_s'] * 1e3:.2f} ms + prediction "
+            f"{med['prediction_s'] * 1e3:.2f} ms, page (host clock around main) "
+            f"{med['page_s'] * 1e3:.2f} ms, of which the sections: "
+            + ", ".join(f"{k.removesuffix('_s')} {v * 1e3:.2f} ms" for k, v in med.items()
+                        if k.endswith(("view_s", "section_s")))
+            + "; probabilities equal to a DesignSession; "
+            f"one launch a page, codes and counts equal to the plain version; the table is "
+            f"sample_structure's ranking; {gpu_name_and_power()}")
+
+        # (b) a rerun with the button off: from the design cache
+        forwards = []
+        session_design = session.design
+        session.design = lambda s: forwards.append(1) or session_design(s)
+        rec, rerun_s = page("b", {**a, "Design!": False}, state)
+        del session.design
+        assert not forwards and launches["b"] == 1 and len(state["design_cache"]) == 1
+        assert "success" in rec.kinds() and UI_PROMPT not in rec.texts("info")
+        ui_figures_in_place(rec, rotamer=True)
+        out["b"] = {"page_s": rerun_s, **{f"{k}_s": v for k, v in section_s.items()}}
+        log(f"ui (b): rerun with Design! off: page {rerun_s * 1e3:.2f} ms (no forward, one "
+            "cached design), of which the sections: "
+            + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in section_s.items())
+            + f"; 1 launch; {gpu_name_and_power()}")
+
+        # (c) NMR consensus
+        nmr = work / "2nmr.pdb"
+        nmr.write_text(nmr_pdb(gzip.decompress(UBQ.read_bytes()).decode()))
+        state = {}
+        rec, nmr_s = page("c", {UI_UPLOAD: PageUpload(nmr), "Choose your Model": "TIMED",
+                                "Design all NMR states (consensus)": True, "Design!": True},
+                          state)
+        assert "2 NMR states" in rec.texts("success")[0] and launches["c"] == 0
+        ui_figures_in_place(rec, rotamer=False)
+        per_state, _, _ = design_entry(state)
+        session = state[f"session::{models / 'TIMED.h5'}"]
+        states = parse_pdb_string(nmr.read_text(), name="2nmr", all_states=True)
+        want = consensus_running_average(
+            [session.design(s)[0].astype(np.float32) for s in states])
+        assert len(per_state) == 2 and np.array_equal(ui._nmr_consensus(per_state), want)
+        out["c"] = {"page_s": nmr_s}
+
+        # (d) ensemble
+        state = {}
+        rec, ens_s = page("d", {UI_UPLOAD: PageUpload(UBQ), "Choose your Model": "TIMED",
+                                "Ensemble: average several models (optional)": ["TIMED", "OTHER"],
+                                "Design!": True}, state)
+        assert "TIMED + OTHER ensemble" in rec.texts("success")[0] and launches["d"] == 0
+        ui_figures_in_place(rec, rotamer=False)
+        (probs,), _, _ = design_entry(state)
+        s = load_pdb(UBQ)
+        members = [state[f"session::{models / f'{m}.h5'}"].design(s)[0].astype(np.float64)
+                   for m in ("TIMED", "OTHER")]
+        ens_err = float(np.abs(probs - np.mean(members, axis=0)).max())
+        assert ens_err <= 2e-6 and np.abs(members[0] - members[1]).max() > 0, ens_err
+        out["d"] = {"page_s": ens_s, "max_abs_err_mean": ens_err}
+
+        # (e) property-constrained design, demo mode
+        state = {}
+        torch.manual_seed(SEED)
+        rec, prop_s = page("e", {UI_UPLOAD: PageUpload(UBQ), "Choose your Model": "TIMED_Charge",
+                                 "Demo mode (random weights)": True, "Design!": True, **mc},
+                           state)
+        assert launches["e"] == 1 and "Constrain charge" in rec.texts("subheader")
+        assert any("RANDOM weights" in w for w in rec.texts("warning"))
+        ui_figures_in_place(rec, rotamer=False)
+        (native_states,) = state["parse_cache"].values()
+        _, full_native = create_residue_map(native_states[0])
+        pmap = np.asarray(convert_seq_to_property(full_native, "charge"), int)
+        rewritten = modify_structure_with_property(copy.deepcopy(native_states[0]), pmap,
+                                                   "charge")
+        session = state["session::TIMED_Charge"]
+        frames, _ = session.voxelize(rewritten)
+        cpu = voxelize_frame_atoms(structure_to_frame_atoms(rewritten, session.codec),
+                                   session.codec, device="cpu")
+        q_err = float((frames[..., -1].cpu() - cpu[..., -1]).abs().max())
+        assert session.codec.channels[-1] == "Q" and float(cpu[..., -1].abs().max()) > 0
+        assert q_err <= 1e-5, q_err
+        (probs,), _, _ = design_entry(state)
+        assert np.array_equal(probs, session.design(rewritten)[0].astype(np.float32))
+        out["e"] = {"page_s": prop_s, "q_channel_card_vs_cpu": q_err}
+
+        # (f) the script started as `streamlit run` starts it
+        rec = PageRecorder()
+        sys.modules["streamlit"] = rec
+        saved_path, saved_argv = list(sys.path), sys.argv
+        try:
+            sys.argv = [str(ROOT / "timed_design_tpu_torch" / "ui.py")]
+            sample_inverse_cdf.launches = 0
+            runpy.run_path(sys.argv[0], run_name="__main__")
+        finally:
+            sys.path[:], sys.argv = saved_path, saved_argv
+        assert rec.texts("info") == [UI_PROMPT] and sample_inverse_cdf.launches == 0
+    finally:
+        sampler.sample_inverse_cdf = real_sample
+        for name in sections:
+            setattr(ui, name, real_sections[name])
+        if saved_streamlit is None:
+            sys.modules.pop("streamlit", None)
+        else:
+            sys.modules["streamlit"] = saved_streamlit
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches_by_flow"] = launches
+    out["launches"] = sum(launches.values())
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"ui: (c) NMR consensus page {nmr_s * 1e3:.2f} ms, (d) ensemble page "
+        f"{ens_s * 1e3:.2f} ms (max |p - mean| {ens_err:.3g}), (e) TIMED_Charge page "
+        f"{prop_s * 1e3:.2f} ms (Q channel card against CPU {q_err:.3g}), (f) the script's "
+        f"idle prompt; launches of the sampling kernel by flow {json.dumps(launches)}; "
+        f"each figure's place holds an error naming matplotlib where it is missing; phase "
+        f"{out['phase_s']:.1f} s; {gpu_name_and_power()}")
+    return out
+
+
 def hdf5_loader_ab() -> dict:
     """A/B of the tree loader's inflate on check_hdf5's dataset
     (HDF5_REPEATS copies of the 988 frames' files, tree gzip): ``td-predict``
@@ -3600,20 +3990,23 @@ def main() -> int:
     flat_bf16 = ROOT / f".chip_smoke_keras_flat_bf16_{os.getpid()}.hdf5"
     hdf5 = check_hdf5(keep_flat_bf16=flat_bf16)
     keras = check_keras(flat_bf16)
+    ui = check_ui()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
                     "td_predict": td_predict, "analyse": analyse, "properties": properties,
-                    "train": train, "quantize": quantize, "hdf5": hdf5, "keras": keras}))
+                    "train": train, "quantize": quantize, "hdf5": hdf5, "keras": keras,
+                    "ui": ui}))
     main_shape = kernel["shapes"][0]
     # TIMED's 64 -> 128 block: the largest of its int8 convolutions
     conv_main = quantize["kernel"]["per_shape"][3]
     # td-predict, training and the HDF5 flow reach no TPU kernel (voxelizer
     # and convs are plain torch); the analysis reaches the sampler through its
-    # sweep, property-constrained design and the Keras phase's /design through
-    # each design's samples
+    # sweep, property-constrained design, the Keras phase's /design and the
+    # design app's Monte-Carlo tab through each design's samples
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
                 "families": families["launches"], "td_predict": td_predict["launches"],
                 "analyse": analyse["launches"], "properties": properties["launches"],
-                "train": train["launches"], "hdf5": hdf5["launches"], "keras": keras["launches"]}
+                "train": train["launches"], "hdf5": hdf5["launches"], "keras": keras["launches"],
+                "ui": ui["launches"]}
     int8_launches = {**quantize["launches"], "hdf5": hdf5["int8_launches"],
                      "keras": keras["int8_launches"]}
     print(json.dumps({"kernels": [{

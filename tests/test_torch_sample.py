@@ -251,6 +251,21 @@ def test_metrics_match_jax():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("seq", ["R" * 76, "KR" * 38, "RK" * 5 + "H", "D" * 76,
+                                 "ACDEFGHIKLMNPQRSTVWY"])
+def test_sequence_metrics_at_the_ends_of_the_ph_range(seq):
+    """A root of the charge past pH 14 (76 arginines: near 14.2) reads as
+    14, the top of the JAX package's bisection bracket; within 1e-4
+    relative elsewhere."""
+    from timed_design_tpu.sample.metrics import sequence_metrics as jax_seq_metrics
+
+    from timed_design_tpu_torch.sample.metrics import sequence_metrics
+
+    got, want = sequence_metrics(seq), jax_seq_metrics(seq)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[1] <= 14.0
+
+
 def test_sample_structure_rotamer_mode():
     """Rotamer draws collapse to amino acids; metrics match each sequence."""
     from timed_design_tpu.constants import ROTAMER_TO_AA

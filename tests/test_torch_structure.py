@@ -171,7 +171,7 @@ PORT_FILES = sorted(str(p.relative_to(REPO))
 def test_port_imports_nothing_of_the_jax_package(path):
     """Every import in the port's modules (``train/`` among them) and in
     chip_smoke.py, read with ast: none names timed_design_tpu, JAX, Flax,
-    optax, h5py or ml_dtypes (the card's machine has none of them)."""
+    optax, h5py, ml_dtypes or pandas (the card's machine has none of them)."""
     tree = ast.parse((REPO / path).read_text(), filename=path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -183,7 +183,7 @@ def test_port_imports_nothing_of_the_jax_package(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("timed_design_tpu", "jax", "jaxlib", "flax", "optax", "h5py",
-                               "ml_dtypes"), (
+                               "ml_dtypes", "pandas"), (
                 f"{path}:{node.lineno} imports {name}")
 
 

@@ -22,6 +22,8 @@ Layering (bottom-up), ported so far:
              analyses, SCWRL4/AlphaFold2/NetSolP adapters, plots, sweeps
   cli     -> td-serve, td-sample, td-predict, td-analyse-rotamers
              (python -m timed_design_tpu_torch.cli.<name>)
+  ui      -> the Streamlit design app
+             (streamlit run timed_design_tpu_torch/ui.py)
 """
 
 __version__ = "0.1.0"

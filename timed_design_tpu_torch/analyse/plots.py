@@ -246,3 +246,58 @@ def plot_patterns(
             plot_sequence_heatmap(probs, f"{model_name}_{pdb}", output_path)
         )
     return paths
+
+
+def rotamer_probability_fig(rotamer_probs: np.ndarray, rotamer_categories=None):
+    """The design app's per-position chart of all 338 rotamer probabilities
+    (in percent, one column a position). Returns the Figure (the caller
+    closes it, ``close_figure``)."""
+    plt = pyplot("the design app")
+
+    L = len(rotamer_probs)
+    fig, ax = plt.subplots(figsize=(min(16, 3 + L * 0.14), 24))
+    im = ax.imshow(np.asarray(rotamer_probs).T * 100, aspect="auto",
+                   cmap="viridis", origin="upper")
+    if rotamer_categories is not None:
+        step = max(1, len(rotamer_categories) // 60)
+        ax.set_yticks(range(0, len(rotamer_categories), step),
+                      rotamer_categories[::step], fontsize=5)
+    ax.set_xlabel("Position")
+    fig.colorbar(im, label="Probability (%)")
+    return fig
+
+
+def design_confusion_fig(cm: np.ndarray):
+    """The design app's 20 x 20 confusion matrix, designed residues against
+    native ones. Returns the Figure (the caller closes it)."""
+    plt = pyplot("the design app")
+
+    fig, ax = plt.subplots(figsize=(7, 6))
+    im = ax.imshow(cm, cmap="viridis", aspect="auto")
+    ax.set_xticks(range(20), list(AA1))
+    ax.set_yticks(range(20), list(AA1))
+    ax.set_xlabel("Designed")
+    ax.set_ylabel("Native")
+    fig.colorbar(im)
+    return fig
+
+
+def ca_trace_fig(ca: np.ndarray):
+    """The CA trace projected on the xy, xz and yz planes, the design app's
+    structure view where py3Dmol is missing. Returns the Figure (the caller
+    closes it)."""
+    plt = pyplot("the design app")
+
+    fig, axes = plt.subplots(1, 3, figsize=(12, 4))
+    for ax, (i, j, lbl) in zip(axes, [(0, 1, "xy"), (0, 2, "xz"), (1, 2, "yz")]):
+        ax.plot(ca[:, i], ca[:, j], "-o", markersize=2, linewidth=1)
+        ax.set_title(f"CA trace ({lbl})")
+        ax.set_aspect("equal")
+    return fig
+
+
+def close_figure(fig) -> None:
+    """Close ONE figure: a server runs sessions on threads of one process,
+    and ``close("all")`` would drop another session's figure from pyplot's
+    shared registry."""
+    pyplot("the design app").close(fig)

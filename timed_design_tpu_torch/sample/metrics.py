@@ -72,7 +72,9 @@ def batched_metrics_from_counts(counts: torch.Tensor, ph: float = 7.4) -> dict[s
     B = counts.shape[0]
     signed = torch.cat([counts, counts.new_ones((B, 2))], dim=1) * sign
     charge = _charge(signed, pka, sign, counts.new_full((B, 1), ph))[:, 0]
-    # charge falls with pH; keep the bracket (lo, lo + width] around its root
+    # charge falls with pH; keep the bracket (lo, lo + width] around its root.
+    # A root past pH 14 (a sequence of arginines) reads as 14, the top of the
+    # JAX package's bisection bracket
     steps = torch.arange(1, _GRID + 1, device=counts.device, dtype=counts.dtype) / _GRID
     lo, width = counts.new_zeros((B, 1)), 14.0
     for _ in range(_ROUNDS):
@@ -81,7 +83,7 @@ def batched_metrics_from_counts(counts: torch.Tensor, ph: float = 7.4) -> dict[s
         width /= _GRID
     return {
         "charge": charge,
-        "isoelectric_point": (lo + width / 2)[:, 0],
+        "isoelectric_point": (lo + width / 2).clamp(max=14.0)[:, 0],
         "molecular_weight": counts @ mw + WATER_MASS,
         "molar_extinction_280": counts @ ext,
     }
