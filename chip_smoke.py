@@ -78,7 +78,14 @@ an output is wrong:
     design page with Monte-Carlo (one sampling launch a page, held to the
     plain version), a rerun from the design cache, NMR consensus, an
     ensemble, property-constrained design, and the script's start as
-    ``streamlit run`` starts it.
+    ``streamlit run`` starts it;
+  - scale-out (``check_scale_out``): a mesh of one process per card over
+    NCCL (``parallel/``): the Predictor over a world of one against one
+    card (TIMED and TIMED_rotamer, bf16, and int8 with its launches held to
+    the plain version), a float32 train step over the mesh against float64,
+    ``fit`` with and without the mesh, ``torchrun`` of td-predict (files
+    byte-equal to the plain run's, with and without ``--quantize int8``)
+    and of td-train; two ranks where the machine has two cards.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1405,20 +1412,26 @@ def timed_forward_flops(module) -> float:
     return sum(2 * c.weight[0].numel() * c.out_channels * 21 ** 3 for c in convs)
 
 
-def one_train_step(module, device, x, y, threads: int | None = None) -> dict:
+def one_train_step(module, device, x, y, threads: int | None = None, mesh=None) -> dict:
     """One make_train_step of ``module`` on ``device`` (on the CPU with
-    ``threads`` threads): the loss, and the gradients and floating-point
-    buffers (BatchNorm running statistics) after it, on the host in float64."""
+    ``threads`` threads; over ``mesh``, this rank's rows of the batch): the
+    loss, and the gradients and floating-point buffers (BatchNorm running
+    statistics) after it, on the host in float64."""
     import torch
 
+    from timed_design_tpu_torch.parallel import shard_batch
     from timed_design_tpu_torch.train import init_train_state, make_train_step
 
     n = torch.get_num_threads()
     torch.set_num_threads(threads or n)
+    on_mesh = {} if mesh is None else {"mesh": mesh}
+    if mesh is not None:
+        x, y = shard_batch(x, mesh), shard_batch(y, mesh)
     try:
-        state = init_train_state(module, device=device)
+        state = init_train_state(module, device=device, **on_mesh)
         t0 = time.perf_counter()
-        loss = float(make_train_step(module, state.optimizer)(x.to(device), y.to(device))["loss"])
+        loss = float(make_train_step(module, state.optimizer, **on_mesh)(
+            x.to(device), y.to(device))["loss"])
         secs = time.perf_counter() - t0
     finally:
         torch.set_num_threads(n)
@@ -1570,7 +1583,7 @@ def train_step_parity(name: str, x, y) -> dict:
     return out
 
 
-def train_throughput(source, dtype, label: str) -> dict:
+def train_throughput(source, dtype, label: str, mesh=None) -> dict:
     """Registry TIMED trained by ``fit`` over ``source`` (shuffled, batch
     256; ``label`` names its frames): one epoch to warm up, then 3 epochs
     timed. ms per step from CUDA events around each train step (median of
@@ -1578,7 +1591,7 @@ def train_throughput(source, dtype, label: str) -> dict:
     clock over the 3 epochs (ending in a synchronize), and the device busy
     share of a 4th epoch under torch.profiler. fit reads the step's metrics
     at step 0 of each call only (log_every), so no step but that one waits
-    on the host."""
+    on the host. ``mesh``: ``fit`` over it (its collectives included)."""
     import statistics
 
     import torch
@@ -1606,7 +1619,7 @@ def train_throughput(source, dtype, label: str) -> dict:
 
     def epochs(n):
         return train_mod.fit(module, source, n_classes=20, epochs=n, log_every=10_000,
-                             device="cuda")
+                             device="cuda", **({} if mesh is None else {"mesh": mesh}))
 
     train_mod.make_train_step = timed_make_step
     try:
@@ -3893,6 +3906,391 @@ def check_ui() -> dict:
     return out
 
 
+# The scale-out phase (check_scale_out): registry models over a mesh of one
+# process per card, on the td-predict phase's 988 frames.
+SCALE_OUT_MODELS = ("TIMED", "TIMED_rotamer")
+
+# td-predict under torchrun: every int8 launch recorded (8 rows of each) and,
+# after the run, held to the plain version on a CPU copy; the launches of
+# both kernels in that process printed
+PREDICT_CLI_CHECKED = """
+import runpy, sys
+import chip_smoke
+import timed_design_tpu_torch.models.quantize as quantize
+from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+calls = []
+def record(xq, wq, padding=0, scale=None, bias=None, out_dtype=None):
+    y = conv3d_int8(xq, wq, padding, scale, bias, out_dtype)
+    calls.append((xq[:8].clone(), wq, padding, scale, bias, out_dtype, y[:8].clone()))
+    return y
+quantize.conv3d_int8 = record
+sys.argv = ["td-predict", *sys.argv[1:]]
+runpy.run_module("timed_design_tpu_torch.cli.predict", run_name="__main__")
+print(f"conv3d_int8 launches: {conv3d_int8.launches}")
+print(f"sample_inverse_cdf launches: "
+      f"{sample_inverse_cdf.launches + sample_inverse_cdf_batched.launches}")
+checked, err = chip_smoke.replay_calls(calls, on_cpu=True)
+print(f"conv3d_int8 replayed: {len(calls)} calls, {sum(checked.values())} of {len(checked)} "
+      f"shapes equal to plain, max_abs_err {err}")
+"""
+
+# td-train under torchrun, and a rank of the two-card world of
+# check_scale_out (e), whose results go under the directory it is given
+SCALE_OUT_RANK = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.scale_out_rank(chip_smoke.Path(sys.argv[2]))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(nproc: int, target: list, cwd: Path, timeout: int = 600):
+    """``python -m torch.distributed.run`` of ``target`` (a script and its
+    arguments, or ``-m module ...``) on ``nproc`` ranks of this machine,
+    rendezvous on a free local port; the completed process, rc 0 asserted."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+         str(nproc), "--master_addr", "127.0.0.1", "--master_port", str(free_port()), *target],
+        cwd=cwd, capture_output=True, text=True, timeout=timeout,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    return proc
+
+
+def scale_out_probs(mesh, frames: list, quantize=None, dtype="bfloat16", name="TIMED"):
+    """Probabilities of registry ``name`` (random weights from SEED) on
+    ``frames``, (device batch of 512, n_valid) pairs, by a Predictor over
+    ``mesh`` (None: one card)."""
+    import numpy as np
+    import torch
+
+    from timed_design_tpu_torch.engine import Predictor
+    from timed_design_tpu_torch.models import MODEL_REGISTRY
+
+    torch.manual_seed(SEED)
+    module = MODEL_REGISTRY[name].build(compute_dtype=getattr(torch, dtype))
+    p = Predictor(module, batch_size=512, device="cuda", quantize=quantize, mesh=mesh)
+    return np.concatenate(list(p.predict_stream(frames)))
+
+
+def mesh_train_steps(mesh, x, y) -> tuple:
+    """One float32 train step of registry TIMED (dropout off, TF32 off) from
+    the same weights: float64 on the card (the reference), float32 on one
+    card, and float32 over ``mesh`` (this rank's rows, BatchNorm over the
+    global batch, gradients summed over the data axis)."""
+    import copy
+
+    import torch
+
+    from timed_design_tpu_torch.models import MODEL_REGISTRY
+
+    torch.manual_seed(SEED)
+    module = MODEL_REGISTRY["TIMED"].build(dropout_rate=0.0)
+    witness = copy.deepcopy(module).double()
+    witness.compute_dtype = torch.float64
+    f64 = one_train_step(witness, "cuda", x.double(), y.double())
+    one = one_train_step(copy.deepcopy(module), "cuda", x, y)
+    over = one_train_step(copy.deepcopy(module), "cuda", x, y, mesh=mesh)
+    return f64, one, over
+
+
+def mesh_step_errors(f64: dict, one: dict, over: dict, what: str) -> dict:
+    """The mesh's step against float64 to the train phase's tolerances
+    (STEP_TOL), or 4x the one-card float32 step's own distance to float64
+    where that is larger (a bias ahead of a BatchNorm is rounding noise in
+    float32 on one card too)."""
+    err_one, err = step_errors(one, f64), step_errors(over, f64)
+    tol = {k: max(STEP_TOL[k], 4 * err_one[k]) for k in ("loss", "bn")}
+    leaf_tol = {k: max(STEP_TOL["grad"], 4 * err_one["grad"][k]) for k in err["grad"]}
+    worst = max(err["grad"], key=lambda k: err["grad"][k] / leaf_tol[k])
+    direct = step_errors(over, one)
+    out = {"loss": err["loss"], "loss_one_card": err_one["loss"], "loss_tol": tol["loss"],
+           "bn": err["bn"], "bn_one_card": err_one["bn"], "bn_tol": tol["bn"],
+           "grad_nearest_limit": {"leaf": worst, "mesh": err["grad"][worst],
+                                  "one_card": err_one["grad"][worst], "tol": leaf_tol[worst]},
+           "mesh_against_one_card": {"loss": direct["loss"], "bn": direct["bn"],
+                                     "grad_largest": max(direct["grad"].values())}}
+    log(f"scale-out {what}: float32 step of registry TIMED against float64 on the card: loss "
+        f"rel {err['loss']:.2e} (one card {err_one['loss']:.2e}, limit {tol['loss']:.2e}); "
+        f"gradients nearest their limit {worst} {err['grad'][worst]:.2e} (one card "
+        f"{err_one['grad'][worst]:.2e}, limit {leaf_tol[worst]:.2e}); running statistics "
+        f"{err['bn']:.2e} (one card {err_one['bn']:.2e}); the mesh against one card: loss "
+        f"{direct['loss']:.2e}, largest gradient {out['mesh_against_one_card']['grad_largest']:.2e}"
+        f", statistics {direct['bn']:.2e}")
+    for k in ("loss", "bn"):
+        assert err[k] <= tol[k], f"{what}: {k} {err[k]:.3g} from float64 (limit {tol[k]:.3g})"
+    bad = sorted(k for k, v in err["grad"].items() if v > leaf_tol[k])
+    assert not bad, f"{what}: the gradients of {bad} lie outside their tolerance"
+    return out
+
+
+def scale_out_rank(work: Path) -> None:
+    """A rank of the two-card world of check_scale_out (e), launched by
+    torchrun: TIMED's float32 and int8 probabilities over the mesh on the
+    saved frames and the float32 step on the saved batch; rank 0 saves
+    them."""
+    import torch
+    import torch.distributed as dist
+
+    from timed_design_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed()
+    try:
+        mesh = make_mesh()
+        saved = torch.load(work / "inputs.pt")
+        frames = [(x.cuda(), n) for x, n in saved["frames"]]
+        probs = {str(q): scale_out_probs(mesh, frames, q, "float32") for q in (None, "int8")}
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        steps = mesh_train_steps(mesh, saved["x"].cuda(), saved["y"].cuda())
+        if mesh.rank == 0:
+            torch.save({"probs": probs, "steps": steps, "shape": mesh.shape}, work / "two.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_scale_out() -> dict:
+    """Scale-out on the card (``parallel/``): a mesh of one process per card
+    over NCCL. (a) World size 1 joined in this process
+    (``initialize_distributed`` on a local port, left at the end):
+    ``Predictor(mesh=make_mesh())`` of registry TIMED and TIMED_rotamer,
+    bf16, batch 512, on the 988 frames, equal (``torch.equal``) to the
+    single-card Predictor's; ``int8`` over the mesh equal to one card's,
+    each of one batch's launches held to the plain version on a CPU copy of
+    its first 8 frames; td-predict's engine with and without the mesh
+    (frames/s, A B B A) and the voxelization of a batch alone (a rank
+    voxelizes its own rows). (c) One float32 train step of registry
+    TIMED at batch 256 over the mesh against float64 (mesh_step_errors),
+    and ``fit`` in bf16 with and without the mesh (ms/step, frames/s). (b)
+    ``torchrun --nproc_per_node 1`` of td-predict, bf16, with and without
+    ``--quantize int8``: every file byte-equal to the plain td-predict
+    run's, the int8 launches counted in the child (5 a batch), each held
+    to the plain version on a CPU copy of 8 rows there. (d)
+    ``torchrun -m timed_design_tpu_torch.cli.train`` for one epoch from an
+    HDF5 file of the frames; its checkpoint through td-predict. (e) With two
+    cards, the same at two ranks over NCCL against world size 1: float32
+    probabilities within 1e-4, int8 equal, the step within (c)'s
+    tolerances; with one card, a line says the run was not made. The
+    sampling kernel's launches are counted over the phase (in this process
+    and td-predict's children) and must be 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import timed_design_tpu_torch.models.quantize as quantize
+    from timed_design_tpu_torch.cli.predict import main as predict_main
+    from timed_design_tpu_torch.engine import load_dataset_and_predict
+    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.parallel import initialize_distributed, make_mesh
+    from timed_design_tpu_torch.voxel import (
+        FrameBatchSource,
+        create_flat_dataset_map,
+        make_frame_dataset,
+        make_frame_set,
+    )
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_scale_out_", dir=ROOT))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    out: dict = {}
+    int8_launches = {}
+    two_cards = torch.cuda.device_count() >= 2
+    # scale-out reaches no sampling: its count is read, not assumed
+    sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
+    child_sample_launches = 0
+    try:
+        inputs = work / "in"
+        write_structures(inputs)
+        fs = make_frame_set(sorted(inputs.glob("*.pdb*")), voxelise_all_states=True)
+        dmap = create_flat_dataset_map(fs)
+        source = FrameBatchSource(fs, dmap, 512, device="cuda")
+        list(source)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = [(X, n) for X, _, n in source]
+        torch.cuda.synchronize()
+        out["voxelize_ms_per_batch"] = (time.perf_counter() - t0) / len(frames) * 1e3
+        assert sum(n for _, n in frames) == 988
+        log(f"scale-out: the batch source voxelizes a batch of 512 in "
+            f"{out['voxelize_ms_per_batch']:.2f} ms (host clock, synchronized; a rank of n "
+            f"voxelizes b/n of it through FrameBatchSource(rows=); fit's source still "
+            f"voxelizes the whole batch)")
+
+        assert initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0) == (0, 1)
+        try:
+            mesh = make_mesh()
+            assert dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1}
+            # (a) the Predictor over a world of one
+            out["predictor_equal"] = {}
+            for name in SCALE_OUT_MODELS:
+                one = scale_out_probs(None, frames, name=name)
+                over = scale_out_probs(mesh, frames, name=name)
+                out["predictor_equal"][name] = bool(torch.equal(torch.from_numpy(over),
+                                                                torch.from_numpy(one)))
+                assert out["predictor_equal"][name], f"{name}: the mesh's probabilities differ"
+            calls = []
+
+            def record(xq, wq, padding=0, scale=None, bias=None, out_dtype=None):
+                y = conv3d_int8(xq, wq, padding, scale, bias, out_dtype)
+                calls.append((xq[:8], wq, padding, scale, bias, out_dtype, y[:8]))
+                return y
+
+            conv3d_int8.launches = 0
+            quantize.conv3d_int8 = record
+            try:
+                int8_over = scale_out_probs(mesh, frames[:1], "int8")
+            finally:
+                quantize.conv3d_int8 = conv3d_int8
+            int8_launches["mesh_predictor"] = conv3d_int8.launches
+            assert conv3d_int8.launches == PER_FORWARD, conv3d_int8.launches
+            checked, max_err = replay_calls(calls, on_cpu=True)
+            calls.clear()
+            assert all(checked.values()), checked
+            int8_one = scale_out_probs(None, frames[:1], "int8")
+            out["int8"] = {"launches": int8_launches["mesh_predictor"],
+                           "equal_to_plain": all(checked.values()),
+                           "max_abs_err": max_err,
+                           "equal_to_one_card": bool(np.array_equal(int8_over, int8_one))}
+            assert out["int8"]["equal_to_one_card"], "int8 over the mesh differs from one card"
+            log(f"scale-out (a), world size 1 over NCCL: Predictor probabilities of "
+                f"{', '.join(SCALE_OUT_MODELS)} (bf16, batch 512, 988 frames) torch.equal to one "
+                f"card's; int8 over the mesh {PER_FORWARD} launches on one batch, each equal to "
+                f"the plain version on a CPU copy of 8 frames, probabilities equal to one card's")
+            fps = []
+            # a first, cold run (cuDNN's set-up) is not counted
+            for label, m in (("cold", None), ("one card", None), ("mesh", mesh),
+                             ("mesh", mesh), ("one card", None)):
+                dest = work / f"engine_{len(fps)}"
+                dest.mkdir()
+                r = load_dataset_and_predict(["TIMED"], fs, batch_size=512, path_to_output=dest,
+                                             dataset_map_path=dest / "datasetmap.txt",
+                                             device="cuda", compute_dtype=torch.bfloat16,
+                                             allow_random_weights=True, mesh=m)
+                fps.append((label, 988 / r.timings["predict"]))
+            fps = fps[1:]
+            out["engine_frames_per_s"] = fps
+            log("scale-out: td-predict's engine, TIMED bf16, 988 frames, batch 512, predict "
+                "frames/s (A B B A): " + ", ".join(f"{k} {v:.0f}" for k, v in fps)
+                + f"; {gpu_name_and_power()}")
+
+            # (c) training over the mesh
+            src256 = FrameBatchSource(fs, dmap, 256, device="cuda", shuffle=True, shuffle_seed=0)
+            X, y, _ = next(iter(src256))
+            x, yt = X[:256], torch.from_numpy(y[:256]).cuda()
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            steps = mesh_train_steps(mesh, x, yt)
+            out["train_step"] = mesh_step_errors(*steps, "world size 1")
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+            out["fit_bf16"] = {
+                "one_card": train_throughput(src256, torch.bfloat16, "4 structures, one card"),
+                "mesh": train_throughput(src256, torch.bfloat16, "4 structures, mesh of one",
+                                         mesh=mesh)}
+            if two_cards:
+                refs = {str(q): scale_out_probs(mesh, frames, q, "float32") for q in (None, "int8")}
+        finally:
+            dist.destroy_process_group()
+
+        # (b) td-predict under torchrun, against the plain run
+        script = work / "td_predict.py"
+        script.write_text(PREDICT_CLI_CHECKED)
+        out["torchrun_td_predict"] = {}
+        for q in (None, "int8"):
+            plain, ran = work / f"plain_{q}", work / f"torchrun_{q}"
+            predict_main(td_predict_argv("TIMED", inputs, plain, "bfloat16", q))
+            t0 = time.perf_counter()
+            proc = torchrun(1, [str(script), *td_predict_argv("TIMED", inputs, ran, "bfloat16", q)],
+                            work)
+            wall = time.perf_counter() - t0
+            launches = int(proc.stdout.rsplit("conv3d_int8 launches: ", 1)[1].split()[0])
+            assert launches == (PER_FORWARD * 2 if q else 0), (q, launches)
+            child_sample_launches += int(
+                proc.stdout.rsplit("sample_inverse_cdf launches: ", 1)[1].split()[0])
+            replayed = proc.stdout.rsplit("conv3d_int8 replayed: ", 1)[1].splitlines()[0]
+            n_calls, n_equal, n_shapes = (int(replayed.split()[i]) for i in (0, 2, 4))
+            replay_err = float(replayed.rsplit("max_abs_err ", 1)[1])
+            assert n_calls == launches and n_equal == n_shapes, f"torchrun int8: {replayed}"
+            names = sorted(p.name for p in plain.iterdir())
+            assert names == sorted(p.name for p in ran.iterdir()), (q, names)
+            unequal = [n for n in names if (plain / n).read_bytes() != (ran / n).read_bytes()]
+            assert not unequal, f"torchrun td-predict {q}: {unequal} differ from the plain run's"
+            n = check_td_predict_outputs(ran, "TIMED", False, True)
+            predict_s = float(proc.stdout.split("  predict: ", 1)[1].split("s")[0])
+            out["torchrun_td_predict"][str(q)] = {
+                "files_byte_equal": len(names), "launches": launches, "wall_s": wall,
+                "predict_frames_per_s": n / predict_s, "launches_equal_to_plain": n_calls,
+                "max_abs_err": replay_err}
+            if q:
+                int8_launches["torchrun_td_predict"] = launches
+            log(f"scale-out (b): torchrun --nproc_per_node 1 td-predict TIMED bf16 "
+                f"{'--quantize ' + q if q else 'unquantized'}: {len(names)} files byte-equal to "
+                f"the plain run's, {launches} conv3d_int8 launches, each equal to the plain "
+                f"version on a CPU copy of 8 rows, cold process "
+                f"{n / predict_s:.0f} frames/s, wall {wall:.1f} s")
+
+        # (d) td-train under torchrun, its checkpoint through td-predict
+        h5 = work / "frames.hdf5"
+        make_frame_dataset(sorted(inputs.glob("*.pdb*")), h5, voxelise_all_states=True,
+                           device="cuda")
+        ckpt = work / "torchrun.npz"
+        t0 = time.perf_counter()
+        proc = torchrun(1, ["-m", "timed_design_tpu_torch.cli.train", "--path_to_dataset",
+                            str(h5), "--model", "TIMED", "--epochs", "1", "--batch_size", "256",
+                            "--bf16", "--output", str(ckpt)], work)
+        train_wall = time.perf_counter() - t0
+        assert ckpt.exists() and "Saved checkpoint" in proc.stdout, proc.stdout[-2000:]
+        dest = work / "from_checkpoint"
+        result = predict_main(td_predict_argv(f"TIMED@{ckpt}", inputs, dest, "bfloat16", None))
+        n = check_td_predict_outputs(dest, "TIMED", False, True)
+        probs = np.concatenate(list(result.pdb_to_probability.values()))
+        assert np.isfinite(probs).all() and np.allclose(probs.sum(1), 1, atol=1e-3)
+        out["torchrun_td_train"] = {"wall_s": train_wall, "predicted_frames": n}
+        log(f"scale-out (d): torchrun -m timed_design_tpu_torch.cli.train, one epoch of 988 "
+            f"frames from HDF5, bf16: rc 0 in {train_wall:.1f} s; its checkpoint through "
+            f"td-predict: {n} residues, rows sum to 1")
+
+        # (e) two ranks over NCCL
+        if two_cards:
+            torch.save({"frames": [(X.cpu(), n) for X, n in frames], "x": x.cpu(),
+                        "y": yt.cpu()}, work / "inputs.pt")
+            rank = work / "rank.py"
+            rank.write_text(SCALE_OUT_RANK)
+            torchrun(2, [str(rank), str(ROOT), str(work)], work)
+            two = torch.load(work / "two.pt", weights_only=False)
+            assert two["shape"] == {"data": 2, "model": 1}
+            dp = float(np.abs(two["probs"]["None"] - refs["None"]).max())
+            assert dp <= 1e-4, f"two ranks: float32 probabilities {dp:.3g} from world size 1"
+            assert np.array_equal(two["probs"]["int8"], refs["int8"]), "two ranks: int8 differs"
+            out["two_ranks"] = {"float32_max_abs_dp": dp, "int8_equal": True,
+                                "train_step": mesh_step_errors(*two["steps"], "two ranks")}
+            log(f"scale-out (e): two ranks over NCCL: float32 probabilities {dp:.2e} from world "
+                "size 1, int8 equal, the step within its tolerances")
+        else:
+            out["two_ranks"] = None
+            log(f"scale-out (e): the two-rank run over NCCL was not made: this machine has "
+                f"{torch.cuda.device_count()} card, and NCCL takes one rank per card")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        shutil.rmtree(work, ignore_errors=True)
+    out["int8_launches"] = int8_launches
+    out["launches"] = (sample_inverse_cdf.launches + sample_inverse_cdf_batched.launches
+                       + child_sample_launches)
+    assert out["launches"] == 0, f"scale-out launched the sampling kernel {out['launches']} times"
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"scale-out: phase {out['phase_s']:.1f} s; {gpu_name_and_power()}")
+    return out
+
+
 def hdf5_loader_ab() -> dict:
     """A/B of the tree loader's inflate on check_hdf5's dataset
     (HDF5_REPEATS copies of the 988 frames' files, tree gzip): ``td-predict``
@@ -3991,24 +4389,27 @@ def main() -> int:
     hdf5 = check_hdf5(keep_flat_bf16=flat_bf16)
     keras = check_keras(flat_bf16)
     ui = check_ui()
+    scale_out = check_scale_out()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
                     "td_predict": td_predict, "analyse": analyse, "properties": properties,
                     "train": train, "quantize": quantize, "hdf5": hdf5, "keras": keras,
-                    "ui": ui}))
+                    "ui": ui, "scale_out": scale_out}))
     main_shape = kernel["shapes"][0]
     # TIMED's 64 -> 128 block: the largest of its int8 convolutions
     conv_main = quantize["kernel"]["per_shape"][3]
     # td-predict, training and the HDF5 flow reach no TPU kernel (voxelizer
     # and convs are plain torch); the analysis reaches the sampler through its
     # sweep, property-constrained design, the Keras phase's /design and the
-    # design app's Monte-Carlo tab through each design's samples
+    # design app's Monte-Carlo tab through each design's samples; scale-out
+    # reaches the int8 kernel only, under --quantize int8
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
                 "families": families["launches"], "td_predict": td_predict["launches"],
                 "analyse": analyse["launches"], "properties": properties["launches"],
                 "train": train["launches"], "hdf5": hdf5["launches"], "keras": keras["launches"],
-                "ui": ui["launches"]}
+                "ui": ui["launches"], "scale_out": scale_out["launches"]}
     int8_launches = {**quantize["launches"], "hdf5": hdf5["int8_launches"],
-                     "keras": keras["int8_launches"]}
+                     "keras": keras["int8_launches"],
+                     "scale_out": sum(scale_out["int8_launches"].values())}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",
@@ -4037,7 +4438,8 @@ def main() -> int:
         "replaces": "timed_design_tpu/models/quantize.py:125",
         "launches": sum(int8_launches.values()),
         "launches_by_path": int8_launches,
-        "max_abs_err": quantize["kernel"]["max_abs_err"],
+        "max_abs_err": max(quantize["kernel"]["max_abs_err"], scale_out["int8"]["max_abs_err"],
+                           *(r["max_abs_err"] for r in scale_out["torchrun_td_predict"].values())),
         "ms": conv_main["ms"],
         "plain_ms": conv_main["plain_ms"],
         "bound_ms": conv_main["bound_ms"],

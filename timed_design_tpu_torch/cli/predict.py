@@ -31,6 +31,13 @@ The flags of ``timed_design_tpu/cli/predict.py`` plus ``--device`` (default
 ``cuda``; without a card it exits with a message, and runs on the CPU only
 with ``--device cpu``). ``--quantize`` runs every convolution in a mode of
 ``models/quantize.py``.
+
+Under ``torchrun`` (one process per card) every rank joins the world and
+each batch is split over all of them (``parallel.make_mesh()``): each rank
+runs its rows and gathers the rest, and process index 0 alone writes the
+files, the report and the profiler trace:
+
+    torchrun --nproc_per_node 4 -m timed_design_tpu_torch.cli.predict ...
 """
 from __future__ import annotations
 
@@ -102,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Run td-predict; returns the engine's PredictionResult."""
+    """Run td-predict; returns the engine's PredictionResult (None on a
+    rank other than process index 0 under torchrun)."""
     args = build_parser().parse_args(argv)
     dataset_path = Path(args.path_to_dataset)
     is_hdf5 = dataset_path.suffix.lower() in (".hdf5", ".h5")
@@ -116,12 +124,22 @@ def main(argv=None):
         raise SystemExit(f"--device {args.device}: no CUDA device here; "
                          "pass --device cpu to predict on the CPU")
     from ..analyse.plots import require_pyplot
+    from ..parallel.mesh import launched_mesh
 
     for flag in ("report", "output_analysis"):  # before predicting, not after
         if getattr(args, flag):
             require_pyplot(f"--{flag}")
+    with launched_mesh(args.device) as mesh:
+        return _predict(args, dataset_path, is_hdf5, mesh)
+
+
+def _predict(args, dataset_path: Path, is_hdf5: bool, mesh):
+    from ..parallel.distributed import process_index
+
+    writer = process_index() == 0
     out = Path(args.path_to_output)
-    out.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out.mkdir(parents=True, exist_ok=True)
     cfg = PredictConfig(
         path_to_dataset=dataset_path,
         path_to_model=args.path_to_model,
@@ -150,7 +168,7 @@ def main(argv=None):
               f"frames are voxelized on {args.device}, batch by batch")
 
     profile_cm = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and writer:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
@@ -173,7 +191,10 @@ def main(argv=None):
             allow_random_weights=args.allow_random_weights,
             ensemble=args.ensemble,
             quantize=args.quantize,
+            mesh=mesh,
         )
+    if not writer:
+        return None
     if args.profile:
         trace = Path(args.profile) / "td_predict_trace.json"
         trace.parent.mkdir(parents=True, exist_ok=True)

@@ -15,6 +15,13 @@ import_timed_params``); a ``.h5`` ``--output`` writes one
 refused before training. The JAX CLI's flags plus ``--device`` (default
 ``cuda``; without a card it exits with a message, and runs on the CPU only
 with ``--device cpu``).
+
+Under ``torchrun`` (one process per card) every rank joins the world and
+trains data-parallel over all of them (``parallel.make_mesh()``), every
+rank reading the same shuffled batches and stepping on its rows; process
+index 0 alone writes the checkpoint:
+
+    torchrun --nproc_per_node 4 -m timed_design_tpu_torch.cli.train ...
 """
 from __future__ import annotations
 
@@ -100,6 +107,13 @@ def main(argv=None):
                          "pass --device cpu to train on the CPU")
     if args.patience is not None and args.val_fraction <= 0:
         raise SystemExit("--patience requires --val_fraction > 0")
+    from ..parallel.mesh import launched_mesh
+
+    with launched_mesh(args.device) as mesh:
+        return _train(args, mesh)
+
+
+def _train(args, mesh):
     out = Path(args.output)
     from ..io import (
         FrameBatchLoader,
@@ -108,6 +122,7 @@ def main(argv=None):
         split_dataset_map,
     )
     from ..models import TIMED, export_timed_to_h5, get_model_spec
+    from ..parallel.distributed import process_index
     from ..train import balanced_class_weights, fit, load_checkpoint_params, save_checkpoint
     from ..train.train import flax_variables
 
@@ -194,10 +209,14 @@ def main(argv=None):
         init_weights=init_weights,
         class_weights=class_weights,
         device=args.device,
+        mesh=mesh,
     )
+    writer = process_index() == 0
     if export_h5:
         # the release format: loads in the JAX package, TF's Keras and the port
         variables = flax_variables(state.module)
+        if not writer:
+            return state
         export_timed_to_h5(variables["params"], variables["batch_stats"], out,
                            n_classes=spec.n_classes, input_channels=meta.frame_dims[-1])
         print(f"Exported Keras release-format h5 to {out} after {int(state.step)} steps")
@@ -206,7 +225,8 @@ def main(argv=None):
     # Name@ckpt.npz rebuilds the trained module
     arch_kw = {k: v for k, v in build_kw.items() if k != "compute_dtype"}
     save_checkpoint(state, out, build_kwargs=arch_kw or None)
-    print(f"Saved checkpoint to {out} after {int(state.step)} steps")
+    if writer:
+        print(f"Saved checkpoint to {out} after {int(state.step)} steps")
     return state
 
 

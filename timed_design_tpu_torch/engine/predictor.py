@@ -8,6 +8,11 @@ copied once into a pinned host buffer. ``load_dataset_and_predict`` takes
 its frames from an in-memory ``FrameSet`` (PDB files, voxelized on the
 device batch by batch) or from an HDF5 frame dataset, tree or flat layout
 (``io/h5frames.py``).
+
+Over a mesh (``parallel/``, one process per card) every rank sees the same
+global batch, runs the forward on its own rows of it and gathers the
+probabilities over the data axis on the device, so every rank holds the
+whole batch's; ``load_dataset_and_predict`` writes on process index 0 only.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..constants import ROTAMER_CATEGORIES, ROTAMER_TO_AA_ONEHOT
@@ -52,6 +58,9 @@ from ..models import (
     quantized_convs,
 )
 from ..models.quantize import check_mode
+from ..parallel import barrier, replicate
+from ..parallel.distributed import process_index
+from ..parallel.mesh import Mesh, batch_over
 from ..utils import PhaseTimer
 from ..voxel.dataset import FrameBatchSource, FrameSet, create_flat_dataset_map
 
@@ -67,21 +76,47 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def resolve_device(device: torch.device | str | None, mesh: Mesh | None = None) -> torch.device:
+    """``device``; else the device of ``mesh``'s collectives; else the card
+    (``default_device``)."""
+    if device is None and mesh is not None:
+        device = mesh.device
+    return torch.device(device) if device is not None else default_device()
+
+
 class Predictor:
-    """Fixed-batch forward pass of one model on one device."""
+    """Fixed-batch forward pass of one model on one device, or over a
+    mesh's data axis."""
 
     def __init__(self, model: nn.Module, batch_size: int = 512,
-                 device: torch.device | str | None = None, quantize: str | None = None):
+                 device: torch.device | str | None = None, quantize: str | None = None,
+                 mesh: Mesh | None = None):
         """``model``: a module whose forward maps (B, 21, 21, 21, C) frames
         to (B, n_classes) float32 probabilities and that names its
         ``compute_dtype`` (the frames' dtype on the device). ``quantize``:
         None, or a mode of ``models/quantize.py`` ('int8', 'int8-fake',
-        'w8') that every forward runs in."""
+        'w8') that every forward runs in.
+
+        ``mesh`` (``parallel.make_mesh``): ``batch_size`` rounds up to a
+        multiple of the data axis, the weights are broadcast from the
+        mesh's first rank (replicated, as the JAX Predictor replicates
+        them: the model axis is training's only), each rank runs its rows
+        of every batch and the outputs gather over the data axis. The
+        device defaults to the mesh's; a device the mesh's collectives
+        cannot run on raises (NCCL takes CUDA tensors, gloo CPU ones)."""
         check_mode(quantize)
         self.quantize = quantize
-        self.device = torch.device(device) if device is not None else default_device()
+        self.mesh = mesh
+        self.device = resolve_device(device, mesh)
+        if mesh is not None and mesh.device is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"a mesh whose collectives run on {mesh.device.type} cannot "
+                             f"gather a predictor's outputs on {self.device.type}")
         self.model = model.to(self.device).eval()
-        self.batch_size = batch_size
+        if mesh is not None:
+            replicate(self.model, mesh)
+        n_data = 1 if mesh is None else mesh.shape["data"]
+        # round up so the batch splits evenly across the data axis
+        self.batch_size = -(-batch_size // n_data) * n_data
         self.n_classes = model.n_classes
         self.dtype = model.compute_dtype
         if self.device.type == "cuda" and self.dtype == torch.float32:
@@ -89,10 +124,16 @@ class Predictor:
             torch.backends.cudnn.allow_tf32 = False
 
     def to_device(self, chunk) -> torch.Tensor:
-        """Pad to the batch, place on the device, cast to the compute dtype.
+        """Pad to the batch, place on the device, cast to the compute dtype;
+        over a mesh, this rank's rows of the padded batch only.
 
         Accepts host (numpy) or device (torch) frames; host frames go through
         pinned memory so the copy is asynchronous."""
+        batch_size = self.batch_size
+        if self.mesh is not None:
+            batch_size //= self.mesh.shape["data"]
+            lo = self.mesh.data_index * batch_size
+            chunk = chunk[lo : lo + batch_size]
         if isinstance(chunk, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(chunk))
             if self.device.type == "cuda":
@@ -100,8 +141,8 @@ class Predictor:
             chunk = x
         x = chunk.to(self.device, non_blocking=True).to(self.dtype)
         n = x.shape[0]
-        if n < self.batch_size:
-            padded = x.new_zeros((self.batch_size, *x.shape[1:]))
+        if n < batch_size:
+            padded = x.new_zeros((batch_size, *x.shape[1:]))
             padded[:n] = x
             x = padded
         return x
@@ -111,10 +152,18 @@ class Predictor:
         this predictor or any other with the same device, batch and compute
         dtype, so that several models share one device batch) and the copy
         of its result to a pinned host buffer. Returns the handle ``fetch``
-        waits on. The quantize mode is entered here, on the thread that runs
-        the forward (a coalescer's worker, td-predict's loop)."""
-        with torch.inference_mode(), quantized_convs(self.quantize):
+        waits on. The quantize mode and the mesh are entered here, on the
+        thread that runs the forward (a coalescer's worker, td-predict's
+        loop). Over a mesh the outputs gather over the data axis on the
+        device, queued behind the forward, so every rank holds the whole
+        batch's."""
+        with torch.inference_mode(), quantized_convs(self.quantize), batch_over(self.mesh):
             out = self.model(x)
+            group = None if self.mesh is None else self.mesh.data_group
+            if group is not None:
+                parts = [torch.empty_like(out) for _ in range(self.mesh.shape["data"])]
+                dist.all_gather(parts, out, group=group)
+                out = torch.cat(parts)
         if self.device.type != "cuda":
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -260,7 +309,8 @@ def load_dataset_and_predict(
     allow_random_weights: bool = False,
     ensemble: bool = False,
     quantize: str | None = None,
-) -> PredictionResult:
+    mesh: Mesh | None = None,
+) -> PredictionResult | None:
     """Run every model over ``dataset`` and write the JAX package's artifact
     set into ``path_to_output`` (default: the working directory).
 
@@ -291,12 +341,20 @@ def load_dataset_and_predict(
     the same bytes) and writes the artifact set as ``ensemble``; the models
     must share a head. ``quantize``: every model's convolutions in that mode
     of ``models/quantize.py`` (None: unquantized).
+
+    ``mesh``: every model's ``Predictor`` over it. Every rank runs every
+    batch (each its rows, and from a ``FrameSet`` voxelizes only those);
+    process index 0 alone writes, and settles the map before the other
+    ranks read it. The other ranks return None.
     """
     timer = PhaseTimer()
     path_to_output = Path.cwd() if path_to_output is None else Path(path_to_output)
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device, mesh)
     filter_list = get_pdb_keys_to_filter(blacklist) if blacklist else []
     from_frames = isinstance(dataset, FrameSet)
+    writer = process_index() == 0
+    if not writer:
+        barrier("datasetmap")  # process 0 settles (and saves) the map first
 
     with timer.phase("datasetmap"):
         dataset_map_path = Path(dataset_map_path)
@@ -331,7 +389,10 @@ def load_dataset_and_predict(
             else:
                 dmap, _ = h5_dataset_map(Path(dataset), filter_list,
                                          remove_blacklist_silently=True)
-            save_datasetmap(dmap, path_to_output / dataset_map_path.name)
+            if writer:
+                save_datasetmap(dmap, path_to_output / dataset_map_path.name)
+    if writer:
+        barrier("datasetmap")
 
     if not models:
         raise ValueError("no models given")
@@ -340,7 +401,8 @@ def load_dataset_and_predict(
         model, model_name = _resolve_model(
             m, compute_dtype=compute_dtype, allow_random_weights=allow_random_weights)
         resolved_models.append((model, model_name))
-    predictors = [Predictor(model, batch_size=batch_size, device=device, quantize=quantize)
+    predictors = [Predictor(model, batch_size=batch_size, device=device, quantize=quantize,
+                            mesh=mesh)
                   for model, _ in resolved_models]
     if len({p.dtype for p in predictors}) != 1:
         raise ValueError("the models compute in different dtypes "
@@ -373,8 +435,12 @@ def load_dataset_and_predict(
     resuming = start_batch > 0
     loader_wait = 0.0
     if from_frames:
+        rows = None
+        if mesh is not None:  # voxelize this rank's rows only (Predictor.to_device's)
+            b = predictors[0].batch_size // mesh.shape["data"]
+            rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
         source = FrameBatchSource(dataset, dmap, predictors[0].batch_size, start_batch,
-                                  device=device)
+                                  device=device, rows=rows)
     else:
         source = FrameBatchLoader(Path(dataset), dmap, predictors[0].batch_size, start_batch,
                                   device=device)
@@ -385,7 +451,7 @@ def load_dataset_and_predict(
     decode_parts: list[list[np.ndarray]] = [[] for _ in predictors]
     ens_sum: np.ndarray | None = None
     ens_off = 0
-    if ensemble and not resuming:
+    if ensemble and not resuming and writer:
         ens_sum = np.zeros((dmap.n_residues, n_classes), np.float64)
 
     class _ModelCSVStream:
@@ -413,8 +479,9 @@ def load_dataset_and_predict(
             if self._onehot is not None:
                 self._onehot.close()
 
-    streams = [_ModelCSVStream(name) for _, name in resolved_models]
-    labels_file = open(path_to_output / "encoded_labels.csv", "ab" if resuming else "wb")
+    streams = [_ModelCSVStream(name) for _, name in resolved_models] if writer else []
+    labels_file = (open(path_to_output / "encoded_labels.csv", "ab" if resuming else "wb")
+                   if writer else None)
     try:
         with timer.phase("predict"):
             pending: collections.deque = collections.deque()
@@ -463,7 +530,8 @@ def load_dataset_and_predict(
                 outs_np = [Predictor.fetch(h, n) for h in outs]
                 if writer_err:
                     raise writer_err[0]
-                write_q.put((outs_np, y, n))
+                if writer:
+                    write_q.put((outs_np, y, n))
 
             try:
                 batches = iter(source)
@@ -486,9 +554,12 @@ def load_dataset_and_predict(
             if writer_err:
                 raise writer_err[0]
     finally:
-        labels_file.close()
+        if labels_file is not None:
+            labels_file.close()
         for st in streams:
             st.close()
+    if not writer:
+        return None
 
     def _emit_outputs(probs, model_name, *, read_back, write_csv=False, main_csv=None):
         """Decode one model's matrix and write its artifacts other than the
@@ -573,7 +644,7 @@ def _structure_model_key(model) -> tuple:
     return ("obj", id(model))
 
 
-# (model key, batch size, device, random-weight opt-in) -> (Predictor,
+# (model key, batch size, device, mesh, random-weight opt-in) -> (Predictor,
 # model name, the model argument). A bounded LRU so callers looping
 # structures through predict_structure keep their models loaded; the lock
 # covers lookup, insert and eviction for concurrent callers.
@@ -590,18 +661,22 @@ def predict_structure(
     batch_size: int = 512,
     device: torch.device | str | None = None,
     allow_random_weights: bool = False,
+    mesh: Mesh | None = None,
 ):
     """PDB -> frames -> probabilities, voxelizer and CNN back to back on the
-    device. Returns (probs (R, n_classes), FrameAtoms)."""
+    device (over ``mesh``'s data axis when given: each rank runs its rows,
+    and returns every row). Returns (probs (R, n_classes), FrameAtoms)."""
     from ..models import MODEL_REGISTRY
     from ..structure import Structure, load_pdb
     from ..voxel import Codec, structure_to_frame_atoms, voxelize_frame_atoms
 
     if not isinstance(structure_or_path, Structure):
         structure_or_path = load_pdb(Path(structure_or_path))
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device, mesh)
+    # the mesh by identity, as the JAX package keys it: a cached entry holds
+    # the mesh, so its id is not reused while the entry lives
     key = (_structure_model_key(model), batch_size, str(device),
-           bool(allow_random_weights))
+           None if mesh is None else id(mesh), bool(allow_random_weights))
     with _STRUCTURE_PREDICTOR_LOCK:
         hit = _STRUCTURE_PREDICTOR_CACHE.get(key)
         if hit is not None:
@@ -612,7 +687,7 @@ def predict_structure(
         resolved, model_name = _resolve_model(
             model, allow_random_weights=allow_random_weights
         )
-        predictor = Predictor(resolved, batch_size=batch_size, device=device)
+        predictor = Predictor(resolved, batch_size=batch_size, device=device, mesh=mesh)
         with _STRUCTURE_PREDICTOR_LOCK:
             _STRUCTURE_PREDICTOR_CACHE[key] = (predictor, model_name, model)
             while len(_STRUCTURE_PREDICTOR_CACHE) > _STRUCTURE_PREDICTOR_CAPACITY:

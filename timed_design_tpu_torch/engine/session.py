@@ -1,7 +1,8 @@
 """DesignSession: one model loaded once, designing structure after structure.
 
 The port of ``timed_design_tpu/engine/session.py``: the model, its weights
-and the voxelizer live on one device; bfloat16 is the default compute dtype.
+and the voxelizer live on one device (or each rank of a mesh voxelizes the
+structure and predicts its rows); bfloat16 is the default compute dtype.
 """
 from __future__ import annotations
 
@@ -30,9 +31,12 @@ class DesignSession:
         compute_dtype: t.Union[str, torch.dtype] = "bfloat16",
         allow_random_weights: bool = False,
         quantize: str | None = None,
+        mesh=None,
     ):
         """``quantize``: None, or the mode of ``models/quantize.py`` that
-        every forward runs in ('int8', 'int8-fake', 'w8')."""
+        every forward runs in ('int8', 'int8-fake', 'w8'). ``mesh``
+        (``parallel.make_mesh``): the predictor runs each rank's rows of
+        every batch over its data axis (``Predictor``)."""
         if isinstance(compute_dtype, str):
             compute_dtype = getattr(torch, compute_dtype)
         resolved, self.model_name = _resolve_model(
@@ -45,7 +49,7 @@ class DesignSession:
         self.codec = Codec.from_string(codec) if isinstance(codec, str) else codec
         self.gaussian = gaussian
         self.predictor = Predictor(resolved, batch_size=batch_size, device=device,
-                                   quantize=quantize)
+                                   quantize=quantize, mesh=mesh)
         self.last_timings: dict[str, float] = {}
 
     @property

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm3d, at_least_float32, cast_conv, global_average_pool_3d
+from .layers import BatchNorm3d, at_least_float32, cast_conv, cast_linear, global_average_pool_3d
 
 
 def _bn(features: int) -> BatchNorm3d:
@@ -97,7 +97,7 @@ class DenseNet3D(nn.Module):
             if bi < len(self.transitions):
                 x = self.transitions[bi](x)
         x = global_average_pool_3d(F.relu(self.bn(at_least_float32(x))))
-        x = self.head(x)
+        x = cast_linear(self.head, x)
         return x if logits else torch.softmax(x, dim=-1)
 
 

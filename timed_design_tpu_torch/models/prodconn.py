@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import at_least_float32, cast_conv, dropout
+from .layers import at_least_float32, cast_conv, cast_linear, dropout
 
 _FLAT = 6 ** 3 * 64  # features after the last conv, 21^3 frames
 
@@ -46,10 +46,9 @@ class ProDCoNN(nn.Module):
         x = F.max_pool3d(x, 2, 2)
         x = F.relu(cast_conv(self.convs[3], x))
         x = x.permute(0, 2, 3, 4, 1).flatten(1)  # NDHWC order, as Flax flattens
-        hidden = self.dense[0]
-        x = F.relu(F.linear(x, hidden.weight.to(dt), hidden.bias.to(dt)))
+        x = F.relu(cast_linear(self.dense[0], x))
         x = dropout(x, self.dropout_rate, self.training, generator)
-        x = self.dense[1](at_least_float32(x))
+        x = cast_linear(self.dense[1], at_least_float32(x))
         return x if logits else torch.softmax(x, dim=-1)
 
 

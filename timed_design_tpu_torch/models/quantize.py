@@ -9,7 +9,8 @@ unquantized, as Flax's ``nn.Dense`` does under the JAX package's gate.
 Modes:
   * ``"int8"``       weights per output channel, symmetric int8; activations
                      per tensor, symmetric int8, scaled by the whole input of
-                     the convolution (every frame of the padded batch); the
+                     the convolution (every frame of the padded batch, on
+                     every data rank of a mesh); the
                      integer convolution with int32 sums (``ops/conv3d_int8``:
                      the hand-written kernel on the card, its plain version on
                      the CPU), rescaled in float32, cast and biased in the
@@ -36,9 +37,11 @@ import contextvars
 import typing as t
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.conv3d_int8 import OUT_DTYPES, conv3d_int8
+from ..parallel.mesh import active_mesh, all_reduce
 
 MODES = ("int8", "int8-fake", "w8")
 
@@ -97,9 +100,16 @@ def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def quantize_activation(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(codes, scale) of a whole tensor: float32 codes in [-127, 127] and a
-    0-dim float32 scale, max |x| over 127, floored as the weights'."""
+    0-dim float32 scale, max |x| over 127, floored as the weights'. Under a
+    mesh (``parallel/mesh.py::batch_over``) ``x`` is this rank's rows of a
+    batch split over the data group and the max is the global batch's, as
+    JAX's max over a sharded batch reduces over every shard."""
     x32 = x.to(torch.float32)
-    s_x = (x32.abs().amax() / 127.0).clamp_min(_TINY)
+    amax = x32.abs().amax().reshape(1)
+    mesh = active_mesh()
+    if mesh is not None:
+        all_reduce(amax, mesh.data_group, dist.ReduceOp.MAX)
+    s_x = (amax[0] / 127.0).clamp_min(_TINY)
     return torch.clamp(torch.round(x32 / s_x), -127, 127), s_x
 
 

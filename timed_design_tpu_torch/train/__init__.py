@@ -1,6 +1,6 @@
 """Training on PyTorch: the port of ``timed_design_tpu/train/`` (its npz
-checkpoints included; orbax checkpoints and tensor-parallel layouts are not
-ported)."""
+checkpoints and the mesh's data and model axes included; orbax checkpoints
+are not ported)."""
 from .train import (  # noqa: F401
     TrainState,
     balanced_class_weights,
@@ -12,5 +12,6 @@ from .train import (  # noqa: F401
     make_eval_step,
     make_lr_schedule,
     make_train_step,
+    param_shardings,
     save_checkpoint,
 )

@@ -10,8 +10,17 @@ weights. Checkpoints are the JAX package's npz, in Flax names and layouts,
 so ``Name@ckpt.npz`` loads a checkpoint written here in either package.
 
 The module owns its parameters: the train step updates it and its optimizer
-in place. One device, so no mesh: a batch is cut to its valid rows and never
-padded. Everything runs on the card unless the caller names the CPU.
+in place. Everything runs on the card unless the caller names the CPU.
+
+Without a mesh a batch is cut to its valid rows and never padded. Over a
+mesh (``parallel/``, one process per card) every rank sees the same global
+batch, filled up to a multiple of the data axis with repeats of its valid
+rows as the JAX package fills it, and takes its own rows: each rank's loss
+is its share of the global mean, BatchNorm takes the global batch's
+statistics, the gradients and metrics are summed over the data group, and
+Adam steps the same on every rank. Over a model axis the layers
+``param_shardings`` marks run split (``parallel/tensor_parallel.py``), and a
+checkpoint gathers them whole.
 """
 from __future__ import annotations
 
@@ -25,7 +34,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..engine.predictor import default_device
+from ..engine.predictor import resolve_device
+from ..parallel import replicate, shard_batch
+from ..parallel.distributed import process_index
+from ..parallel.mesh import Mesh, NamedSharding, all_reduce, batch_over
+from ..parallel.tensor_parallel import gather_state_dict, shard_model_axis
 from ..models import (
     TIMED,
     DenseNet3D,
@@ -66,8 +79,29 @@ def _layout(module: nn.Module) -> tuple[t.Callable, t.Callable]:
 
 def flax_variables(module: nn.Module) -> dict:
     """The module's weights as the JAX package's ``{"params",
-    "batch_stats"}`` tree of numpy arrays."""
-    return _layout(module)[0](module.state_dict())
+    "batch_stats"}`` tree of numpy arrays; the layers split over a model
+    axis gathered whole (a collective over the model group)."""
+    return _layout(module)[0](gather_state_dict(module, module.state_dict()))
+
+
+def param_shardings(params: dict, mesh: Mesh) -> dict:
+    """The tensor-parallel layout of a Flax-named ``params`` tree (the JAX
+    package's ``param_shardings``): the output-channel (last) axis of any
+    ``kernel`` of rank >= 2 whose size divides the ``model`` axis on
+    ``"model"``; everything else replicated. ``shard_model_axis`` splits
+    exactly these layers."""
+    n_model = mesh.shape["model"]
+
+    def rule(key: str, x) -> NamedSharding:
+        shape = np.shape(x)
+        if n_model > 1 and len(shape) >= 2 and shape[-1] % n_model == 0 and key == "kernel":
+            return NamedSharding(mesh, (None,) * (len(shape) - 1) + ("model",))
+        return NamedSharding(mesh, ())
+
+    def walk(tree: dict) -> dict:
+        return {k: walk(v) if isinstance(v, dict) else rule(k, v) for k, v in tree.items()}
+
+    return walk(params)
 
 
 def balanced_class_weights(labels, n_classes: int) -> np.ndarray:
@@ -98,7 +132,19 @@ def _hits(logits: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     return top1, top3
 
 
-def make_train_step(module: nn.Module, optimizer: torch.optim.Optimizer, class_weights=None):
+def _sum_grads(module: nn.Module, group) -> None:
+    """Every parameter's gradient summed over ``group``, in one collective
+    over one flat buffer."""
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def make_train_step(module: nn.Module, optimizer: torch.optim.Optimizer, class_weights=None,
+                    mesh: Mesh | None = None):
     """One optimizer step at the optimizer's current learning rate:
     ``(x, y, generator=None) -> {"loss", "top1", "top3"}``.
 
@@ -109,47 +155,71 @@ def make_train_step(module: nn.Module, optimizer: torch.optim.Optimizer, class_w
     step. ``class_weights`` ((n_classes,)) weights each row's loss by its
     label's weight, normalised by the batch's total weight; top-1 and top-3
     stay unweighted. After the step each parameter's ``.grad`` holds its
-    gradient."""
+    gradient.
+
+    Over ``mesh``, ``x`` and ``y`` are this rank's rows of a global batch
+    split over the data axis (``shard_batch``): the loss is this rank's
+    share of the global mean (with class weights, over the global weight
+    sum), the gradients are summed over the data group before the step
+    (``.grad`` then holds the global batch's gradient), and the metrics
+    are the global batch's."""
     cw = None
     if class_weights is not None:
         device = next(module.parameters()).device
         cw = torch.as_tensor(np.asarray(class_weights), dtype=torch.float32).to(device)
 
+    group = None if mesh is None else mesh.data_group
+    n_data = 1 if mesh is None else mesh.shape["data"]
+
     def train_step(x: torch.Tensor, y: torch.Tensor,
                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         module.train()
         optimizer.zero_grad(set_to_none=True)
-        logits = module(x, logits=True, generator=generator)
+        with batch_over(mesh):
+            logits = module(x, logits=True, generator=generator)
         ce = _softmax_cross_entropy(logits, y)
+        n = x.shape[0] * n_data
         if cw is None:
-            loss = ce.mean()
+            loss = ce.sum() / n
         else:
             w = y @ cw
-            loss = (ce * w).sum() / w.sum().clamp_min(1e-9)
+            total = all_reduce(w.sum().reshape(1), group)[0]
+            loss = (ce * w).sum() / total.clamp_min(1e-9)
         loss.backward()
+        if group is not None:
+            _sum_grads(module, group)
         optimizer.step()
         with torch.no_grad():
             top1, top3 = _hits(logits, y)
-        return {"loss": loss.detach(), "top1": top1.mean(), "top3": top3.mean()}
+            m = all_reduce(torch.stack([loss.detach(), top1.sum(), top3.sum()]), group)
+        return {"loss": m[0], "top1": m[1] / n, "top3": m[2] / n}
 
     return train_step
 
 
-def make_eval_step(module: nn.Module):
+def make_eval_step(module: nn.Module, mesh: Mesh | None = None):
     """The eval step ``(x, y, n_valid) -> sums`` over the first ``n_valid``
     rows: ``loss_sum``, ``top1_sum``, ``top3_sum`` and the row count ``n``,
     0-d float32 tensors on the device. Evaluation mode: running BatchNorm
-    statistics, no dropout."""
+    statistics, no dropout. Over ``mesh``, ``x`` and ``y`` are this rank's
+    rows of a global batch split over the data axis, masked by their global
+    row index against ``n_valid``, and the sums are summed over the data
+    group."""
 
     def eval_step(x: torch.Tensor, y: torch.Tensor, n_valid: int) -> dict[str, torch.Tensor]:
         module.eval()
-        with torch.inference_mode():
+        if mesh is not None:
+            # this rank's rows start at data_index * rows of the global batch
+            n_valid = min(max(n_valid - mesh.data_index * x.shape[0], 0), x.shape[0])
+        with torch.inference_mode(), batch_over(mesh):
             logits = module(x, logits=True)[:n_valid]
             y = y[:n_valid]
             top1, top3 = _hits(logits, y)
-            return {"loss_sum": _softmax_cross_entropy(logits, y).sum(),
-                    "top1_sum": top1.sum(), "top3_sum": top3.sum(),
-                    "n": torch.tensor(float(n_valid), device=logits.device)}
+            sums = torch.stack([_softmax_cross_entropy(logits, y).sum(), top1.sum(),
+                                top3.sum(), torch.tensor(float(n_valid), device=logits.device)])
+            if mesh is not None:
+                all_reduce(sums, mesh.data_group)
+            return dict(zip(("loss_sum", "top1_sum", "top3_sum", "n"), sums))
 
     return eval_step
 
@@ -159,17 +229,54 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(a).to(device, torch.float32, non_blocking=True)
 
 
-def evaluate(module: nn.Module, loader: t.Iterable, step_fn=None) -> dict:
+def _concat(a, b):
+    """Rows of ``b`` after ``a``'s: numpy or torch, as ``a`` is."""
+    return torch.cat([a, torch.as_tensor(b, device=a.device)]) if isinstance(a, torch.Tensor) \
+        else np.concatenate([a, b])
+
+
+def _zero_rows(a, n: int):
+    """``n`` zero rows shaped as ``a``'s."""
+    if isinstance(a, torch.Tensor):
+        return a.new_zeros((n, *a.shape[1:]))
+    return np.zeros((n, *np.shape(a)[1:]), np.asarray(a).dtype)
+
+
+def fill_batch(X, y, n_valid: int, n_data: int = 1):
+    """A batch's rows for a train step over ``n_data`` data ranks, as the
+    JAX package's ``fit`` fills them: the loader's padding dropped (zero
+    frames would pollute the BatchNorm statistics), then ``max(n_data,
+    ceil(n_valid / n_data) * n_data)`` rows, the valid ones followed by
+    repeats of them in order. At ``n_data`` 1 that is the valid rows."""
+    keep = max(n_data, -(-n_valid // n_data) * n_data)
+    if n_valid == X.shape[0] and keep == n_valid:
+        return X, y
+    src = np.arange(keep - n_valid) % n_valid
+    return _concat(X[:n_valid], X[src]), _concat(y[:n_valid], y[src])
+
+
+def evaluate(module: nn.Module, loader: t.Iterable, step_fn=None,
+             mesh: Mesh | None = None) -> dict:
     """Evaluation-mode metrics over a loader of ``(X, y, n_valid)`` batches,
     on the device that holds the module: ``{"loss", "top1", "top3", "n"}``
     averaged over the valid rows only. Sums stay on the device, in float64,
     and are read once. An empty loader gives NaN metrics and ``n`` 0, never
-    a perfect 0.0 loss that early stopping would keep as its best."""
+    a perfect 0.0 loss that early stopping would keep as its best.
+
+    Over ``mesh`` each batch is zero-padded to a multiple of the data axis
+    (the mask by global row index leaves those rows out), each rank runs
+    its rows and the sums are the global batch's."""
     device = next(module.parameters()).device
-    step_fn = step_fn if step_fn is not None else make_eval_step(module)
+    step_fn = step_fn if step_fn is not None else make_eval_step(module, mesh)
     keys = ("loss_sum", "top1_sum", "top3_sum", "n")
     totals = torch.zeros(len(keys), dtype=torch.float64, device=device)
     for X, y, n_valid in loader:
+        if mesh is not None:
+            n_data = mesh.shape["data"]
+            pad = -X.shape[0] % n_data
+            if pad:
+                X, y = _concat(X, _zero_rows(X, pad)), _concat(y, _zero_rows(y, pad))
+            X, y = shard_batch(X, mesh), shard_batch(y, mesh)
         out = step_fn(_to_device(X, device), _to_device(y, device), n_valid)
         totals += torch.stack([out[k] for k in keys]).double()
     loss_sum, top1_sum, top3_sum, n = totals.tolist()
@@ -251,6 +358,7 @@ def init_train_state(
     learning_rate: float = 1e-3,
     init_weights: dict | None = None,
     device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
 ) -> TrainState:
     """The module on ``device`` (the card unless the caller names the CPU)
     and a ``torch.optim.Adam`` over its parameters (b1 0.9, b2 0.999, eps
@@ -261,8 +369,13 @@ def init_train_state(
     checked against the module's own tree and a mismatch raises naming the
     leaf. Without ``batch_stats`` the module keeps its running statistics.
     On the card in float32, cuDNN's TF32 is turned off, as the predictor
-    does."""
-    device = torch.device(device) if device is not None else default_device()
+    does.
+
+    ``mesh``: the device defaults to the mesh's; the weights are broadcast
+    from the mesh's first rank, so every rank starts equal, and then the
+    layers ``param_shardings`` puts on the model axis are cut to this
+    rank's slice (``shard_model_axis``) before the optimizer is built."""
+    device = resolve_device(device, mesh)
     if init_weights is not None:
         to_flax, from_flax = _layout(module)
         fresh = to_flax(module.state_dict())
@@ -277,6 +390,8 @@ def init_train_state(
             variables["batch_stats"] = given_bs
         module.load_state_dict(from_flax(variables))
     module.to(device)
+    if mesh is not None:
+        shard_model_axis(replicate(module, mesh), mesh)
     if device.type == "cuda" and module.compute_dtype == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
     return TrainState(module, torch.optim.Adam(module.parameters(), lr=learning_rate))
@@ -299,6 +414,7 @@ def fit(
     init_weights: dict | None = None,
     class_weights=None,
     device: torch.device | str | None = None,
+    mesh: Mesh | None = None,
 ) -> TrainState:
     """Train ``module`` in place over a loader of ``(X, y, n_valid)``
     batches (a ``FrameBatchSource``, or host arrays) for ``epochs`` epochs
@@ -317,6 +433,13 @@ def fit(
     epoch's weights are loaded back. ``lr_schedule='cosine'`` decays over
     ``epochs * loader.n_batches`` steps after ``warmup_steps`` of linear
     warmup.
+
+    ``mesh`` (``parallel.make_mesh``): data- and tensor-parallel training
+    over it, every rank fed the same batches. Each batch is filled up to a
+    multiple of the data axis with repeats of its valid rows
+    (``fill_batch``) and each rank steps on its rows; the dropout masks
+    come from a generator per data index (``seed * n_data + data_index``),
+    shared by a data row's model ranks.
     """
     if patience is not None and val_loader is None:
         raise ValueError("patience requires a val_loader to monitor")
@@ -324,11 +447,14 @@ def fit(
     if lr_schedule != "constant" and n_batches is None:
         raise ValueError("a decaying lr_schedule needs loader.n_batches to size the decay")
     lr = make_lr_schedule(lr_schedule, learning_rate, (n_batches or 1) * epochs, warmup_steps)
-    state = init_train_state(module, learning_rate, init_weights, device)
+    state = init_train_state(module, learning_rate, init_weights, device, mesh)
     device = next(module.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(seed)
-    step_fn = make_train_step(module, state.optimizer, class_weights)
-    eval_step = make_eval_step(module) if val_loader is not None else None
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    data_index = 0 if mesh is None else mesh.data_index
+    generator = torch.Generator(device=device).manual_seed(seed * n_data + data_index)
+    on_mesh = {} if mesh is None else {"mesh": mesh}
+    step_fn = make_train_step(module, state.optimizer, class_weights, **on_mesh)
+    eval_step = make_eval_step(module, **on_mesh) if val_loader is not None else None
     best_val = float("inf")
     best_weights = None
     epochs_since_best = 0
@@ -347,15 +473,17 @@ def fit(
                     )
             for group in state.optimizer.param_groups:
                 group["lr"] = lr(state.step)
-            metrics = step_fn(_to_device(X[:n_valid], device), _to_device(y[:n_valid], device),
-                              generator)
+            X, y = fill_batch(X, y, n_valid, n_data)
+            if mesh is not None:
+                X, y = shard_batch(X, mesh), shard_batch(y, mesh)
+            metrics = step_fn(_to_device(X, device), _to_device(y, device), generator)
             if state.step % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 print(f"step {state.step}: loss={m['loss']:.4f} top1={m['top1']:.3f} "
                       f"top3={m['top3']:.3f}")
             state.step += 1
         if val_loader is not None:
-            vm = evaluate(module, val_loader, step_fn=eval_step)
+            vm = evaluate(module, val_loader, step_fn=eval_step, **on_mesh)
             print(
                 f"epoch {epoch}: val_loss={vm['loss']:.4f} "
                 f"val_top1={vm['top1']:.3f} val_top3={vm['top3']:.3f} "
@@ -394,8 +522,12 @@ def save_checkpoint(state: TrainState, path, build_kwargs=None) -> None:
     ``params/...`` and ``batch_stats/...`` entries in Flax names and layouts,
     and ``build_kwargs`` (architecture overrides, such as ``filters``) as a
     JSON ``__build_kwargs__`` entry, so that ``Name@ckpt.npz`` rebuilds the
-    module in either package."""
+    module in either package. Layers split over a model axis are gathered
+    whole first, so under a world every rank calls it; process index 0
+    writes."""
     variables = flax_variables(state.module)
+    if process_index() != 0:
+        return
     flat = {}
     for prefix in ("params", "batch_stats"):
         for key, leaf in sorted(_flatten(variables[prefix]).items()):

@@ -390,11 +390,17 @@ class FrameBatchSource:
     ``shuffle=True`` (training) draws a fresh permutation of the entries on
     every ``__iter__``, that is every epoch, from one
     ``np.random.default_rng(shuffle_seed)`` made here: the order of the JAX
-    package's ``FrameBatchLoader(shuffle=True, shuffle_seed=...)``."""
+    package's ``FrameBatchLoader(shuffle=True, shuffle_seed=...)``.
+
+    ``rows`` (a slice of each batch's positions) voxelizes only those rows
+    and leaves the others zero: a rank of a mesh that predicts its own rows
+    of every batch (``engine/predictor.py``) voxelizes no other rank's.
+    A row's frame is the same either way, to the rounding of the voxelizer's
+    sums over the call's padded atom count."""
 
     def __init__(self, frame_set: FrameSet, dmap: DatasetMap, batch_size: int,
                  start_batch: int = 0, *, device: torch.device | str,
-                 shuffle: bool = False, shuffle_seed: int = 0):
+                 shuffle: bool = False, shuffle_seed: int = 0, rows: slice | None = None):
         if not dmap.is_old:
             raise ValueError("FrameBatchSource needs a per-residue dataset map")
         if shuffle and start_batch:
@@ -412,6 +418,7 @@ class FrameBatchSource:
         self.n_batches = -(-len(self.entries) // batch_size)
         self.shuffle = shuffle
         self._shuffle_rng = np.random.default_rng(shuffle_seed)
+        self.rows = rows
 
     def _batch(self, entries: list, index: int) -> tuple[torch.Tensor, np.ndarray, int]:
         fs, B = self.frame_set, self.batch_size
@@ -422,9 +429,15 @@ class FrameBatchSource:
         y = np.zeros((B, 20), np.float32)
         for i, (s, r) in enumerate(zip(structure, row)):
             y[i, fs.label_index[s][r]] = 1.0
-        X = fs.voxelize_rows(structure, row, self.device)
-        if n < B:
-            X = torch.cat([X, X.new_zeros((B - n, *fs.frame_shape))])
+        if self.rows is None:
+            X = fs.voxelize_rows(structure, row, self.device)
+            if n < B:
+                X = torch.cat([X, X.new_zeros((B - n, *fs.frame_shape))])
+            return X, y, n
+        lo, hi, _ = self.rows.indices(n)
+        X = torch.zeros((B, *fs.frame_shape), device=self.device)
+        if hi > lo:
+            X[lo:hi] = fs.voxelize_rows(structure[lo:hi], row[lo:hi], self.device)
         return X, y, n
 
     def __iter__(self) -> t.Iterator[tuple[torch.Tensor, np.ndarray, int]]:
