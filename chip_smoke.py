@@ -85,7 +85,13 @@ an output is wrong:
     the plain version), a float32 train step over the mesh against float64,
     ``fit`` with and without the mesh, ``torchrun`` of td-predict (files
     byte-equal to the plain run's, with and without ``--quantize int8``)
-    and of td-train; two ranks where the machine has two cards.
+    and of td-train; two ranks where the machine has two cards;
+  - the rank-0 front end (``check_front_end``): ``torchrun`` of td-serve (and
+    with ``--quantize int8``, and with no launcher through
+    ``start_followers``) at world size 1 over NCCL against the one-card
+    server, byte for byte, each launch counted and replayed in the child;
+    the design app through ``shared_front_end``; the four analysis scripts
+    (``timed_design_tpu_torch/scripts``) on the card against the CPU.
 
 The line before the last is the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -102,6 +108,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -4291,6 +4298,570 @@ def check_scale_out() -> dict:
     return out
 
 
+# The front-end phase (check_front_end): td-serve and the design app through
+# parallel/frontend.py, and the analysis scripts of timed_design_tpu_torch/scripts.
+FRONT_END_ARGS = ["--model", "TIMED_rotamer", "--allow-random-weights", "--batch_size", "512",
+                  "--port", "0"]
+FRONT_END_INT8 = ["--quantize", "int8", "--no-coalesce"]
+FRONT_END_ROUNDS = 5  # of A B B A: the one-card server, the front end's twice, one card
+
+# td-serve in a child, under torchrun (argv[2] "torchrun"), with argv[2]
+# followers started by the server itself, or as one process ("plain", the
+# one-card server): every sampling and int8 launch
+# recorded; once the file argv[1] exists the server stops as Ctrl-C stops it,
+# and the child prints its launches and holds each recorded call to the
+# plain version on a CPU copy
+SERVE_CLI_CHECKED = """
+import _thread, runpy, sys, threading, time
+from pathlib import Path
+import torch
+import chip_smoke
+import timed_design_tpu_torch.models.quantize as quantize
+import timed_design_tpu_torch.sample.sampler as sampler
+from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
+from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+convs, draws = [], []
+def record_conv(xq, wq, padding=0, scale=None, bias=None, out_dtype=None):
+    y = conv3d_int8(xq, wq, padding, scale, bias, out_dtype)
+    convs.append((xq[:8].clone(), wq, padding, scale, bias, out_dtype, y[:8].clone()))
+    return y
+def record_draw(probs, n, seed, class_map=None):
+    codes, counts = sample_inverse_cdf(probs, n, seed, class_map)
+    draws.append((probs.cpu(), n, seed, None if class_map is None else class_map.cpu(),
+                  codes.cpu(), counts.cpu()))
+    return codes, counts
+quantize.conv3d_int8, sampler.sample_inverse_cdf = record_conv, record_draw
+stop, mode, argv = Path(sys.argv[1]), sys.argv[2], sys.argv[3:]
+def watch():
+    while not stop.exists():
+        time.sleep(0.02)
+    _thread.interrupt_main()
+threading.Thread(target=watch, daemon=True).start()
+if mode == "torchrun":
+    sys.argv = ["td-serve", *argv]
+    runpy.run_module("timed_design_tpu_torch.cli.serve", run_name="__main__")
+else:
+    from timed_design_tpu_torch.cli.serve import build_parser, serve
+    from timed_design_tpu_torch.parallel.frontend import lead
+    args = build_parser().parse_args(argv)
+    lead(args.device, lambda front: serve(args, front),
+         followers=None if mode == "plain" else int(mode))
+print(f"sample_inverse_cdf launches: {sample_inverse_cdf.launches} "
+      f"batched {sample_inverse_cdf_batched.launches}")
+print(f"conv3d_int8 launches: {conv3d_int8.launches}")
+equal = 0
+for probs, n, seed, cmap, codes, counts in draws:
+    want_codes, want_counts = sample_inverse_cdf(probs, n, seed, cmap)  # the plain version
+    equal += bool(torch.equal(codes, want_codes) and torch.equal(counts, want_counts))
+print(f"sample_inverse_cdf replayed: {len(draws)} calls, {equal} equal to plain")
+checked, err = chip_smoke.replay_calls(convs, on_cpu=True)
+print(f"conv3d_int8 replayed: {len(convs)} calls, {sum(checked.values())} of {len(checked)} "
+      f"shapes equal to plain, max_abs_err {err}")
+"""
+
+
+class ChildServer:
+    """A td-serve child (SERVE_CLI_CHECKED): its output read on a thread,
+    its URL once it prints it, stopped through its stop file."""
+
+    def __init__(self, script: Path, mode: str, argv: list, work: Path, name: str):
+        self.stop_file = work / f"stop_{name}"
+        cmd = [str(script), str(self.stop_file), mode, *argv]
+        if mode == "torchrun":
+            cmd = ["-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", "1",
+                   "--master_addr", "127.0.0.1", "--master_port", str(free_port()), *cmd]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, *cmd], cwd=work, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True, start_new_session=True,
+                                     env={**os.environ, "PYTHONPATH": str(ROOT)})
+        self.lines: list = []
+        threading.Thread(target=self._read, daemon=True).start()
+        self.url = None
+        self.ready_s = None
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+
+    @property
+    def output(self) -> str:
+        return "".join(self.lines)
+
+    def wait_ready(self, timeout: float = 300) -> str:
+        deadline = time.perf_counter() + timeout
+        while self.url is None:
+            for line in list(self.lines):
+                if line.startswith("Serving ") and " on http://" in line:
+                    self.url = line.split(" on ", 1)[1].split()[0]
+                    self.ready_s = time.perf_counter() - self.t0
+            assert self.proc.poll() is None or self.url, self.output[-4000:]
+            assert time.perf_counter() < deadline, f"no server within {timeout} s"
+            time.sleep(0.05)
+        return self.url
+
+    def kill(self) -> None:
+        """Stop the child and what it started: SIGTERM to its process group,
+        which torchrun passes on to its worker (in a session of its own),
+        then SIGKILL."""
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+    def finish(self, timeout: float = 120) -> dict:
+        """Stop the server; its launches and replays."""
+        self.stop_file.touch()
+        self.proc.wait(timeout=timeout)
+        out = self.output
+        assert "sample_inverse_cdf replayed" in out, out[-4000:]
+
+        def after(key):
+            return out.rsplit(key, 1)[1].splitlines()[0]
+
+        draws = after("sample_inverse_cdf replayed: ")
+        convs = after("conv3d_int8 replayed: ")
+        return {"sample_launches": int(after("sample_inverse_cdf launches: ").split()[0]),
+                "sample_batched": int(after("sample_inverse_cdf launches: ").split()[2]),
+                "sample_replayed": int(draws.split()[0]),
+                "sample_equal": int(draws.split()[2]),
+                "int8_launches": int(after("conv3d_int8 launches: ").split()[0]),
+                "int8_replayed": int(convs.split()[0]),
+                "int8_shapes_equal": int(convs.split()[2]) == int(convs.split()[4]),
+                "int8_max_abs_err": float(convs.rsplit("max_abs_err ", 1)[1])}
+
+
+def post_ok(url: str, payload: dict) -> tuple[dict, float]:
+    """``post``, asserting 200 with the server's error in the message."""
+    try:
+        status, body, dt = post(url, payload)
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{url}: HTTP {e.code}: {e.read()[:2000]!r}") from None
+    assert status == 200, body
+    return body, dt
+
+
+def af2_outputs(dest: Path) -> Path:
+    """An AlphaFold2 output folder for 1ubq: a refold moved by 25 A in x,
+    one cut to 50 residues and an unranked file; returns the reference."""
+    text = gzip.decompress(UBQ.read_bytes()).decode()
+    job = dest / "af2" / "job_0"
+    job.mkdir(parents=True)
+    moved, cut = [], []
+    for line in text.splitlines():
+        if line.startswith(("ATOM", "HETATM")):
+            x = float(line[30:38]) + 25.0
+            moved.append(f"{line[:30]}{x:8.3f}{line[38:]}")
+            if int(line[22:26]) <= 50:
+                cut.append(line)
+        else:
+            moved.append(line)
+    (job / "designA_rank_001_model_1.pdb").write_text("\n".join(moved) + "\n")
+    (job / "designB_rank_001_model_1.pdb").write_text("\n".join(cut) + "\nEND\n")
+    (job / "not_ranked.pdb").write_text(text)
+    ref = dest / "1ubq.pdb"
+    ref.write_text(text)
+    return ref
+
+
+def script_run(name: str, args: list, cwd: Path, device: str = "cuda") -> subprocess.Popen:
+    """``python -m timed_design_tpu_torch.scripts.<name> ... --device``,
+    started; its output on a pipe."""
+    cwd.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", f"timed_design_tpu_torch.scripts.{name}", *map(str, args),
+         "--device", device], cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+def finished(proc: subprocess.Popen, t0: float, timeout: float = 300) -> tuple[str, float]:
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, out[-2000:] + err[-4000:]
+    return out, time.perf_counter() - t0
+
+
+def tree_bytes(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+def front_end_split(front, session, reps: int = 20) -> dict:
+    """Median ms of the front end's own work on a padded batch of
+    ``session``'s predictor: the header over gloo (host clock), the scatter of the
+    batch over the data group and the forward of one rank's rows alone, and
+    the front end's whole forward (CUDA events on the stream, each after a
+    synchronize)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from timed_design_tpu_torch.engine import Predictor
+    from timed_design_tpu_torch.parallel.frontend import BEAT, _wire
+
+    predictor = session.predictor
+    x = torch.zeros((predictor.batch_size, 21, 21, 21, len(session.codec.channels)),
+                    dtype=predictor.dtype, device="cuda")
+    n = front.mesh.shape["data"]
+    mine = torch.empty_like(x[: x.shape[0] // n])
+
+    def header():
+        with front.lock:
+            front._header(BEAT)
+
+    def scatter():
+        dist.scatter(_wire(mine), [_wire(p) for p in x.chunk(n)], src=front.mesh.ranks[0],
+                     group=front.mesh.data_group)
+
+    def alone():
+        Predictor.fetch(Predictor.run_device_batch(predictor, mine), 0)
+
+    def whole():
+        Predictor.fetch(predictor.run_device_batch(x), 0)
+
+    out = {}
+    for name, fn in (("header", header), ("scatter", scatter), ("forward_alone", alone),
+                     ("front_end_forward", whole)):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append((start.elapsed_time(end), (time.perf_counter() - t0) * 1e3))
+        out[name] = {"device_ms": float(np.median([t[0] for t in times])),
+                     "host_ms": float(np.median([t[1] for t in times]))}
+    return out
+
+
+def check_front_end() -> dict:
+    """td-serve and the design app through the rank-0 front end
+    (``parallel/frontend.py``) on the card, world size 1 over NCCL, at
+    full TIMED_rotamer width (random weights from a seed, bf16, batch 512),
+    and the four analysis scripts (``timed_design_tpu_torch/scripts``).
+    (a) ``torchrun --nproc_per_node 1 -m timed_design_tpu_torch.cli.serve``:
+    /design of 1ubq with 100 samples at T 0.2 gives the probabilities and
+    samples of the in-process one-card server, byte for byte; one sampling
+    launch a request, counted in the child and each held to the plain
+    version there; /design latency A B B A against the one-card server, and
+    the child's start until it serves. (b) The same with ``--quantize int8
+    --no-coalesce``, against the one-card int8 server: 5 int8 launches a
+    request, each replayed against the plain version in the child. (c)
+    td-serve with no launcher through ``start_followers`` with 0 followers,
+    equal to (a). (d) The design app through ``shared_front_end`` (a world
+    of one): the page's design of 1ubq with TIMED_rotamer.h5 equal to one
+    card's DesignSession, its Monte-Carlo launch equal to the plain version.
+    (e) The scripts as ``python -m`` on the card and with ``--device cpu``:
+    run_benchmark_models (TIMED.h5 from the port's exporter, over an
+    ``.hdf5`` that td-voxelize makes of tests/testing_files), run_sampling
+    on its output (5 batched launches, each held to the plain version),
+    make_af2_jobs on a fasta of its samples, analyse_af2_results; outputs
+    equal to the CPU's (argmax agreement >= 0.99 where a float argmax
+    decides; the sampled fastas too)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import timed_design_tpu_torch.parallel.frontend as frontend
+    import timed_design_tpu_torch.sample.sampler as sampler
+    from timed_design_tpu_torch.cli import voxelize
+    from timed_design_tpu_torch.cli.serve import build_designers, build_parser, make_server
+    from timed_design_tpu_torch.engine import DesignSession
+    from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
+    from timed_design_tpu_torch.scripts import run_sampling
+    from timed_design_tpu_torch.structure import load_pdb
+
+    t_phase = time.perf_counter()
+    # the children share the card with this process: hand back what the
+    # earlier phases left in its allocator's cache
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_front_end_", dir=ROOT))
+    script = work / "serve.py"
+    script.write_text(SERVE_CLI_CHECKED)
+    out: dict = {}
+    launches = {"sample": {}, "int8": {}}
+    children = {"a": ChildServer(script, "torchrun", FRONT_END_ARGS, work, "a"),
+                "b": ChildServer(script, "torchrun", FRONT_END_ARGS + FRONT_END_INT8, work, "b"),
+                "c": ChildServer(script, "0", FRONT_END_ARGS, work, "c"),
+                "p": ChildServer(script, "plain", FRONT_END_ARGS, work, "p")}
+    servers, designers = [], []
+    pdb = gzip.decompress(UBQ.read_bytes()).decode()
+    req = {"pdb": pdb, "n_samples": 100, "temperature": 0.2, "seed": 7}
+    urls: dict = {}
+
+    def one_card(key: str, extra: list) -> None:
+        """A one-card server in this process, warmed (cuDNN's set-up)."""
+        ds = build_designers(build_parser().parse_args(FRONT_END_ARGS + extra))
+        server = make_server(ds["TIMED_rotamer"], "127.0.0.1", 0, "TIMED_rotamer")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        servers.append(server)
+        designers.extend(ds.values())
+        urls[key] = f"http://127.0.0.1:{server.server_address[1]}"
+        post_ok(urls[key] + "/design", req)
+
+    def close_servers() -> None:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        for d in designers:
+            d.close()
+        servers.clear()
+        designers.clear()
+
+    results: dict = {}
+    try:
+        # (b) int8 first, and its child stopped before the others run: six
+        # servers at their peak do not fit the card's memory together
+        one_card("one_int8", FRONT_END_INT8)
+        for key, child in children.items():
+            urls[key] = child.wait_ready()
+        out["ready_s"] = {k: c.ready_s for k, c in children.items()}
+        got = [post_ok(urls["b"] + "/design", req)[0] for _ in range(2)]
+        ref_body = post_ok(urls["one_int8"] + "/design", req)[0]
+        for body in got:
+            assert body["probabilities"] == ref_body["probabilities"], "(b) differs"
+            assert body["samples"] == ref_body["samples"], "(b): samples differ"
+        results["b"] = children["b"].finish()
+        close_servers()
+        torch.cuda.empty_cache()
+
+        # (a), (c) A B B A: the in-process one-card server against torchrun's
+        # front end, and a one-card server in a child against the front end
+        # in a child with no launcher (the same kind of process)
+        one_card("one", [])
+        bodies: dict = {k: [] for k in ("one", "a", "p", "c")}
+        latency: dict = {k: [] for k in ("one", "a", "p", "c")}
+        for _ in range(FRONT_END_ROUNDS):
+            for key in ("one", "a", "a", "one", "p", "c", "c", "p"):
+                body, dt = post_ok(urls[key] + "/design", req)
+                bodies[key].append(body)
+                latency[key].append(dt)
+        want = bodies["one"][0]
+        for body in [b for v in bodies.values() for b in v]:
+            assert body["probabilities"] == want["probabilities"], "(a), (c): probabilities differ"
+            assert body["samples"] == want["samples"], "(a), (c): samples differ"
+        requests = {"a": 2 * FRONT_END_ROUNDS, "b": 2, "c": 2 * FRONT_END_ROUNDS,
+                    "p": 2 * FRONT_END_ROUNDS}
+        for key, child in children.items():
+            r = results[key] if key in results else child.finish()
+            assert r["sample_launches"] == r["sample_replayed"] == requests[key], (key, r)
+            assert r["sample_equal"] == r["sample_replayed"] and r["sample_batched"] == 0, r
+            assert r["int8_launches"] == r["int8_replayed"] == (
+                PER_FORWARD * requests[key] if key == "b" else 0), (key, r)
+            assert r["int8_shapes_equal"], (key, r)
+            launches["sample"][key] = r["sample_launches"]
+            launches["int8"][key] = r["int8_launches"]
+            out[key] = r
+        med = {k: float(np.median(v)) for k, v in latency.items()}
+        out["design_latency_s"] = latency
+        out["design_median_s"] = med
+        log(f"front end (a)-(c): torchrun td-serve TIMED_rotamer bf16 (world size 1 over NCCL) "
+            f"ready in {out['ready_s']['a']:.1f} s (int8 {out['ready_s']['b']:.1f} s, no "
+            f"launcher {out['ready_s']['c']:.1f} s, one card in a child "
+            f"{out['ready_s']['p']:.1f} s, started together); /design 1ubq n=100 median "
+            f"{med['a'] * 1e3:.2f} ms through torchrun's front end against "
+            f"{med['one'] * 1e3:.2f} ms on one card in this process; the front end with no "
+            f"launcher {med['c'] * 1e3:.2f} ms against one card in a child "
+            f"{med['p'] * 1e3:.2f} ms ({FRONT_END_ROUNDS} rounds A B B A each); "
+            f"probabilities and samples byte-equal to one card's; launches counted in the "
+            f"children, each equal to the plain version: sampling {launches['sample']}, "
+            f"int8 {launches['int8']}; {gpu_name_and_power()}")
+    except BaseException:
+        for key, child in children.items():
+            log(f"front end: the output of child ({key}):\n{child.output[-3000:]}")
+        raise
+    finally:
+        close_servers()
+        for child in children.values():
+            child.kill()
+
+    bench: dict = {}
+    try:
+        # (e) started now, beside (d): the scripts' inputs, run_benchmark_models
+        models = work / "models"
+        models.mkdir()
+        keras_release("TIMED", models)
+        h5, _ = voxelize.main([str(ROOT / "tests" / "testing_files"), "-e", ".pdb1.gz", "-n",
+                               "data", "-o", str(work)])
+        t_bench = time.perf_counter()
+        bench = {dev: script_run("run_benchmark_models", [h5, work / f"bench_{dev}", "--models-dir",
+                                                      models], work, dev)
+                 for dev in ("cuda", "cpu")}
+
+        # (d) the design app through the front end, a world of one
+        keras_release("TIMED_rotamer", models)
+        saved_streamlit = sys.modules.get("streamlit")
+        sys.modules["streamlit"] = PageRecorder()
+        import timed_design_tpu_torch.ui as ui
+
+        draws = []
+        real_sample = sampler.sample_inverse_cdf
+
+        def recording(probs, n, seed, class_map=None):
+            codes, counts = real_sample(probs, n, seed, class_map)
+            draws.append((probs.cpu(), n, seed, None if class_map is None else class_map.cpu(),
+                          codes.cpu(), counts.cpu()))
+            return codes, counts
+
+        # the app's phase (check_ui) kept the one-card answer of this process
+        # (no front end); a world of one is asked for here
+        frontend._SHARED.pop("cuda", None)
+        front = frontend.shared_front_end("cuda", followers=0)
+        sampler.sample_inverse_cdf = recording
+        try:
+            assert front.n_ranks == 1 and frontend.shared_front_end("cuda") is front
+            responses = {UI_UPLOAD: PageUpload(UBQ), "Choose your Model": "TIMED_rotamer",
+                         "Design!": True, "Optimize sequences using Monte Carlo": True,
+                         "Number of samples": 200, "Temperature": 0.2}
+            rec = PageRecorder(responses)
+            ui.st = rec
+            sample_inverse_cdf.launches = 0
+            t0 = time.perf_counter()
+            ui.main(["--path_to_models", str(models)])
+            page_s = time.perf_counter() - t0
+            launches["sample"]["d"] = sample_inverse_cdf.launches
+            session = rec.session_state[f"session::{models / 'TIMED_rotamer.h5'}"]
+            assert session.predictor.mesh is front.mesh
+            out["split_ms"] = front_end_split(front, session)
+        finally:
+            sampler.sample_inverse_cdf = real_sample
+            frontend._SHARED.pop("cuda").close()
+            if saved_streamlit is None:
+                sys.modules.pop("streamlit", None)
+            else:
+                sys.modules["streamlit"] = saved_streamlit
+        ui_figures_in_place(rec, rotamer=True)
+        ((probs,), _, _), = rec.session_state["design_cache"].values()
+        direct = DesignSession(str(models / "TIMED_rotamer.h5"), codec="CNOCACB",
+                               batch_size=512, device="cuda")
+        want = direct.design(load_pdb(UBQ))[0].astype(np.float32)
+        assert probs.shape == (76, 338) and np.array_equal(probs, want), \
+            float(np.abs(probs - want).max())
+        assert launches["sample"]["d"] == len(draws) == 1
+        p, n, seed, cmap, codes, counts = draws[0]
+        want_codes, want_counts = sample_inverse_cdf(p, n, seed, cmap)  # the plain version
+        assert torch.equal(codes, want_codes) and torch.equal(counts, want_counts)
+        out["d"] = {"page_s": page_s, "equal_to_one_card": True}
+        log("front end (d): what the front end adds to a forward at world size 1, batch of 512 "
+            "bf16 frames, median ms: " + json.dumps(out["split_ms"]))
+        log(f"front end (d): the design app through shared_front_end (world size 1 over NCCL): "
+            f"1ubq page with TIMED_rotamer.h5 and 200 samples in {page_s * 1e3:.1f} ms (cold), "
+            f"the design equal to one card's DesignSession, 1 sampling launch equal to the "
+            f"plain version")
+
+        # (e) the scripts: run_benchmark_models
+        runs = {dev: finished(proc, t_bench) for dev, proc in bench.items()}
+        walls = {"run_benchmark_models": runs["cuda"][1],
+                 "run_benchmark_models_cpu": runs["cpu"][1]}
+        got, want = (json.loads("{" + runs[d][0].partition("{")[2]) for d in ("cuda", "cpu"))
+        assert list(got) == list(want) == [str(models / "TIMED.h5")], (got, want)
+        tag = work / "bench_cuda" / "TIMED", work / "bench_cpu" / "TIMED"
+        for name in ("datasetmap.txt", "dataset.fasta", "encoded_labels.csv"):
+            assert (tag[0] / name).read_bytes() == (tag[1] / name).read_bytes(), name
+        rows = [np.loadtxt(t / "TIMED.csv", delimiter=",") for t in tag]
+        agree = float((rows[0].argmax(1) == rows[1].argmax(1)).mean())
+        assert rows[0].shape == (76, 20) and agree >= 0.99, agree
+        for key in ("accuracy_1", "accuracy_3", "precision", "recall"):
+            assert abs(got[str(models / "TIMED.h5")][key] - want[str(models / "TIMED.h5")][key]) \
+                <= 1 - agree + 1e-9, key
+
+        # run_sampling: in this process on the card (its launches counted
+        # and replayed), as a subprocess on the CPU
+        samp_cpu = script_run("run_sampling", [tag[0] / "TIMED.csv", tag[0] / "TIMED.txt", 50],
+                          work / "sampling_cpu", "cpu")
+        batched = []
+        real_batched = sampler.sample_inverse_cdf_batched
+
+        def recording_batched(packed, offsets, n, seed, class_map=None):
+            codes, counts = real_batched(packed, offsets, n, seed, class_map)
+            batched.append((packed.cpu(), offsets.cpu() if torch.is_tensor(offsets)
+                            else offsets, n, seed,
+                            None if class_map is None else class_map.cpu(), codes.cpu(),
+                            counts.cpu()))
+            return codes, counts
+
+        (work / "sampling_cuda").mkdir()
+        sampler.sample_inverse_cdf_batched = recording_batched
+        sample_inverse_cdf_batched.launches = 0
+        cwd, printed = os.getcwd(), io.StringIO()
+        try:
+            os.chdir(work / "sampling_cuda")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                run_sampling.main([str(tag[0] / "TIMED.csv"), str(tag[0] / "TIMED.txt"), "50"])
+            walls["run_sampling"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            sampler.sample_inverse_cdf_batched = real_batched
+        launches["sample"]["e"] = sample_inverse_cdf_batched.launches
+        assert launches["sample"]["e"] == len(batched) == 5, launches["sample"]["e"]
+        for packed, offsets, n, seed, cmap, codes, counts in batched:
+            want_codes, want_counts = sample_inverse_cdf_batched(packed, offsets, n, seed, cmap)
+            assert torch.equal(codes, want_codes) and torch.equal(counts, want_counts)
+        cpu_printed, walls["run_sampling_cpu"] = finished(samp_cpu, time.perf_counter())
+        assert printed.getvalue() == cpu_printed, (printed.getvalue(), cpu_printed)
+        fastas = sorted((work / "sampling_cuda").glob("*.fasta"))
+        assert len(fastas) == 5
+        seqs = [[line for line in (d / f.name).read_text().splitlines()
+                 if not line.startswith(">")] for f in fastas
+                for d in (work / "sampling_cuda", work / "sampling_cpu")]
+        pairs = list(zip(seqs[0::2], seqs[1::2]))
+        same = sum(a == b for x, y in pairs for a, b in zip(x, y, strict=True))
+        sample_agree = same / sum(len(x) for x, _ in pairs)
+        assert sample_agree >= 0.99, sample_agree
+
+        # make_af2_jobs on the samples at T 0.1, analyse_af2_results
+        ref = af2_outputs(work)
+        t0 = time.perf_counter()
+        jobs = {dev: script_run("make_af2_jobs", [fastas[0], "jobs"], work / f"af2jobs_{dev}", dev)
+                for dev in ("cuda", "cpu")}
+        scores = {dev: script_run("analyse_af2_results", [ref, work / "af2"],
+                              work / f"af2scores_{dev}", dev) for dev in ("cuda", "cpu")}
+        jobs_out = {dev: finished(p, t0) for dev, p in jobs.items()}
+        scores_out = {dev: finished(p, t0) for dev, p in scores.items()}
+        walls["make_af2_jobs"], walls["analyse_af2_results"] = (
+            jobs_out["cuda"][1], scores_out["cuda"][1])
+        assert jobs_out["cuda"][0] == jobs_out["cpu"][0] and "sbatch " in jobs_out["cpu"][0]
+        assert tree_bytes(work / "af2jobs_cuda") == tree_bytes(work / "af2jobs_cpu")
+        lines = scores_out["cuda"][0].splitlines()
+        assert lines == scores_out["cpu"][0].splitlines() and len(lines) == 3, lines
+        out["e"] = {"walls_s": walls, "benchmark_argmax_agreement": agree,
+                    "sampling_agreement": sample_agree, "af2_lines": lines}
+        log(f"front end (e): the scripts as python -m on the card (and --device cpu, started "
+            f"together): run_benchmark_models of TIMED.h5 over 76 frames {walls['run_benchmark_models']:.1f} s "
+            f"(cpu {walls['run_benchmark_models_cpu']:.1f} s; maps and fastas byte-equal, argmax "
+            f"agreement {agree:.4f}); run_sampling in-process {walls['run_sampling']:.2f} s, "
+            f"5 batched launches each equal to the plain version, the sampled residues "
+            f"{sample_agree:.4f} equal to the cpu's; make_af2_jobs and analyse_af2_results "
+            f"outputs equal ({walls['make_af2_jobs']:.1f}, {walls['analyse_af2_results']:.1f} s "
+            f"of wall, started together); {gpu_name_and_power()}")
+    finally:
+        for proc in list(bench.values()):
+            if proc.poll() is None:
+                proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"front end: phase {out['phase_s']:.1f} s; {gpu_name_and_power()}")
+    return out
+
+
 def hdf5_loader_ab() -> dict:
     """A/B of the tree loader's inflate on check_hdf5's dataset
     (HDF5_REPEATS copies of the 988 frames' files, tree gzip): ``td-predict``
@@ -4390,10 +4961,11 @@ def main() -> int:
     keras = check_keras(flat_bf16)
     ui = check_ui()
     scale_out = check_scale_out()
+    front_end = check_front_end()
     log(json.dumps({"families": families["per_family"], "td_sample": td_sample,
                     "td_predict": td_predict, "analyse": analyse, "properties": properties,
                     "train": train, "quantize": quantize, "hdf5": hdf5, "keras": keras,
-                    "ui": ui, "scale_out": scale_out}))
+                    "ui": ui, "scale_out": scale_out, "front_end": front_end}))
     main_shape = kernel["shapes"][0]
     # TIMED's 64 -> 128 block: the largest of its int8 convolutions
     conv_main = quantize["kernel"]["per_shape"][3]
@@ -4401,15 +4973,18 @@ def main() -> int:
     # and convs are plain torch); the analysis reaches the sampler through its
     # sweep, property-constrained design, the Keras phase's /design and the
     # design app's Monte-Carlo tab through each design's samples; scale-out
-    # reaches the int8 kernel only, under --quantize int8
+    # reaches the int8 kernel only, under --quantize int8; the front end
+    # reaches both, each launch of its children counted there
     launches = {"serve": serving["launches"], "td_sample": td_sample["launches"],
                 "families": families["launches"], "td_predict": td_predict["launches"],
                 "analyse": analyse["launches"], "properties": properties["launches"],
                 "train": train["launches"], "hdf5": hdf5["launches"], "keras": keras["launches"],
-                "ui": ui["launches"], "scale_out": scale_out["launches"]}
+                "ui": ui["launches"], "scale_out": scale_out["launches"],
+                "front_end": sum(front_end["launches"]["sample"].values())}
     int8_launches = {**quantize["launches"], "hdf5": hdf5["int8_launches"],
                      "keras": keras["int8_launches"],
-                     "scale_out": sum(scale_out["int8_launches"].values())}
+                     "scale_out": sum(scale_out["int8_launches"].values()),
+                     "front_end": sum(front_end["launches"]["int8"].values())}
     print(json.dumps({"kernels": [{
         "name": "sample_inverse_cdf",
         "route": "cuda",
@@ -4439,7 +5014,8 @@ def main() -> int:
         "launches": sum(int8_launches.values()),
         "launches_by_path": int8_launches,
         "max_abs_err": max(quantize["kernel"]["max_abs_err"], scale_out["int8"]["max_abs_err"],
-                           *(r["max_abs_err"] for r in scale_out["torchrun_td_predict"].values())),
+                           *(r["max_abs_err"] for r in scale_out["torchrun_td_predict"].values()),
+                           front_end["b"]["int8_max_abs_err"]),
         "ms": conv_main["ms"],
         "plain_ms": conv_main["plain_ms"],
         "bound_ms": conv_main["bound_ms"],

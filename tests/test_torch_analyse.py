@@ -826,6 +826,71 @@ def test_run_model_benchmark_equals_jax(tmp_path, ubq_pdb_gz):
         == sorted(str(p.relative_to(tmp_path / "jax")) for p in (tmp_path / "jax").rglob("*"))
 
 
+def test_run_model_benchmark_on_one_hdf5_file_equals_jax(tmp_path, ubq_pdb_gz):
+    """Both packages' run_model_benchmark on the same ``.hdf5`` frame
+    dataset (the JAX package's ``make_frame_dataset`` of 1ubq), as
+    ``scripts/run_benchmark_models.py`` passes it: metrics within 1e-6 and
+    the same file tree; over a mesh of one (no world joined), the same."""
+    import warnings
+
+    from timed_design_tpu.analyse import run_model_benchmark as jax_bench
+    from timed_design_tpu.voxel import make_frame_dataset
+
+    from timed_design_tpu_torch.analyse import run_model_benchmark
+    from timed_design_tpu_torch.parallel import make_mesh
+
+    ckpt = _peaked_timed_checkpoint(tmp_path / "t.npz", 20, 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        h5 = make_frame_dataset([ubq_pdb_gz], tmp_path / "d.hdf5")
+        want = jax_bench([ckpt], h5, tmp_path / "jax", batch_size=32)
+        got = run_model_benchmark([ckpt], h5, tmp_path / "port", batch_size=32, device="cpu")
+        over = run_model_benchmark([ckpt], h5, tmp_path / "mesh", batch_size=32, device="cpu",
+                                   mesh=make_mesh())
+    assert list(got) == list(want) == list(over) == [ckpt]
+    for key in ("accuracy_1", "accuracy_3", "precision", "recall"):
+        assert abs(got[ckpt][key] - want[ckpt][key]) <= 1e-6, key
+        assert over[ckpt][key] == got[ckpt][key], key
+    assert got[ckpt]["accuracy_1"] > 0
+
+    def tree(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*"))
+
+    assert tree(tmp_path / "port") == tree(tmp_path / "jax") == tree(tmp_path / "mesh")
+
+
+# Public names of the JAX package that ROADMAP.md lists under "Not ported":
+# orbax checkpoints, jax.profiler helpers and the TPU-measured dispatch
+NOT_PORTED = {"train": {"save_checkpoint_orbax", "load_checkpoint_orbax"},
+              "utils": {"trace", "block_until_ready"},
+              "sample": {"sample_class_indices"}}
+
+
+def test_every_public_name_of_the_jax_subpackages_is_in_the_port():
+    """Each name that a JAX subpackage's ``__init__.py`` imports or assigns
+    (read with ast) is an attribute of the port's subpackage of the same
+    name, less ``NOT_PORTED``."""
+    import ast
+    import importlib
+
+    root = Path(__file__).resolve().parent.parent / "timed_design_tpu"
+    missing = {}
+    for init in sorted(root.glob("*/__init__.py")):
+        names = set()
+        for node in ast.parse(init.read_text()).body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+            elif isinstance(node, ast.Assign):
+                names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        names = {n for n in names if not n.startswith("_") and n != "annotations"}
+        sub = init.parent.name
+        port = importlib.import_module(f"timed_design_tpu_torch.{sub}")
+        gone = sorted(n for n in names - NOT_PORTED.get(sub, set()) if not hasattr(port, n))
+        if gone:
+            missing[sub] = gone
+    assert not missing
+
+
 def _jax_structure_uniforms(seed, n, offsets, pad_to=32):
     """The (n, sum L) uniforms JAX's sample_all_structures draws (one key
     per structure from ``split``, drawn at the padded length)."""

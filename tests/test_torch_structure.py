@@ -187,6 +187,15 @@ def test_port_imports_nothing_of_the_jax_package(path):
                 f"{path}:{node.lineno} imports {name}")
 
 
+def test_the_import_check_reads_the_scripts_and_the_front_end():
+    """The ast check above reads the analysis scripts (``scripts/``) and the
+    rank-0 front end with the rest."""
+    for path in ("scripts/__init__.py", "scripts/run_benchmark_models.py",
+                 "scripts/run_sampling.py", "scripts/make_af2_jobs.py",
+                 "scripts/analyse_af2_results.py", "parallel/frontend.py"):
+        assert f"timed_design_tpu_torch/{path}" in PORT_FILES, path
+
+
 def _imported_tops(tree) -> list[tuple[int, str]]:
     out = []
     for node in ast.walk(tree):

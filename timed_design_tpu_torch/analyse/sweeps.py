@@ -2,7 +2,7 @@
 plots; the port of ``timed_design_tpu/analyse/sweeps.py``.
 
 Plain functions over the port's engine and sampler: every model over one
-set of PDB files (``load_dataset_and_predict``), ``td-sample`` at each
+frame dataset or set of PDB files (``load_dataset_and_predict``), ``td-sample`` at each
 temperature (``main_sample``, one batched kernel launch per temperature),
 and box and line plots of the results (matplotlib, imported when a plot is
 drawn).
@@ -27,22 +27,28 @@ def run_model_benchmark(
     predict_rotamers: bool = False,
     allow_random_weights: bool = False,
     device: torch.device | str | None = None,
-) -> dict[str, dict]:
-    """Run every model over one set of PDB files; per-model output dirs and
-    metrics.
+    mesh=None,
+) -> dict[str, dict] | None:
+    """Run every model over one dataset; per-model output dirs and metrics.
 
-    ``dataset_path`` is a PDB file or a directory of them, made into one
-    frame set (``td-predict --voxelize``'s input) for every model, each
-    predicted on ``device`` (default: the CUDA device). Returns
-    {model_name: sequence-recovery metrics dict}.
+    ``dataset_path``: an HDF5 frame dataset (``.hdf5``/``.h5``, tree or flat
+    layout), passed on to ``load_dataset_and_predict`` as the JAX function
+    passes it; or a PDB file or a directory of them, made into one frame
+    set (``td-predict --voxelize``'s input). Every model predicts on
+    ``device`` (default: the CUDA device), over ``mesh``'s data axis when
+    one is given (``parallel.make_mesh``). Returns {model_name:
+    sequence-recovery metrics dict}; over a mesh, on process index 0 only
+    (None elsewhere).
     """
     from ..engine import load_dataset_and_predict
+    from ..parallel.distributed import process_index
     from ..voxel import make_frame_set
     from .metrics import calculate_metrics
 
-    dataset_path = Path(dataset_path)
-    pdbs = sorted(dataset_path.glob("**/*.pdb*")) if dataset_path.is_dir() else [dataset_path]
-    frame_set = make_frame_set(pdbs)
+    dataset = Path(dataset_path)
+    if dataset.suffix.lower() not in (".hdf5", ".h5"):
+        pdbs = sorted(dataset.glob("**/*.pdb*")) if dataset.is_dir() else [dataset]
+        dataset = make_frame_set(pdbs)
     results = {}
     for model in models:
         # a weights path becomes its stem: an absolute path joined onto
@@ -50,13 +56,16 @@ def run_model_benchmark(
         tag = Path(str(model)).stem if str(model).endswith(
             (".h5", ".hdf5")) else str(model)
         out = Path(output_root) / tag
-        out.mkdir(parents=True, exist_ok=True)
+        if process_index() == 0:
+            out.mkdir(parents=True, exist_ok=True)
         res = load_dataset_and_predict(
-            [model], frame_set, batch_size=batch_size,
+            [model], dataset, batch_size=batch_size,
             path_to_output=out, predict_rotamers=predict_rotamers,
             dataset_map_path=out / "datasetmap.txt",
-            allow_random_weights=allow_random_weights, device=device,
+            allow_random_weights=allow_random_weights, device=device, mesh=mesh,
         )
+        if res is None:  # a rank other than process index 0 of a mesh
+            continue
         # probabilities give TRUE top-k (20-class heads only; rotamer
         # probabilities are 338-wide and keep the reference's one-hot form)
         probs = None if predict_rotamers else res.pdb_to_probability
@@ -70,7 +79,7 @@ def run_model_benchmark(
             "recall": m["recall"],
             "timings": res.timings,
         }
-    return results
+    return results if process_index() == 0 else None
 
 
 def run_temperature_sweep(

@@ -26,6 +26,17 @@ With several ``--model`` flags a request's "model" field picks one;
 ``--ensemble`` adds a virtual "ensemble" model averaging every member.
 Concurrent requests are coalesced into shared device batches unless
 ``--no-coalesce``.
+
+Across cards, one process per card, as the JAX server splits every batch
+over all local chips: under ``torchrun`` every rank joins the world it
+launched, rank 0 binds HTTP and serves, and the others follow it
+(``parallel/frontend.py``: rank 0 sends each rank its rows of every batch,
+every rank runs the forward on its own, the probabilities gather on rank
+0, where Monte-Carlo samples are drawn). Without a launcher, ``--device
+cuda`` with more than one visible card starts one follower process for each
+further card; with one card, or ``--device cpu``, the server is one process.
+
+    torchrun --nproc_per_node 4 -m timed_design_tpu_torch.cli.serve --model TIMED.h5
 """
 from __future__ import annotations
 
@@ -388,8 +399,10 @@ def _add_ensemble(designers: dict) -> None:
         raise SystemExit(f"--ensemble: {e}") from None
 
 
-def build_designers(args) -> dict:
-    """One designer per ``--model`` (plus the ensemble), in flag order."""
+def build_designers(args, front=None) -> dict:
+    """One designer per ``--model`` (plus the ensemble), in flag order; each
+    session over ``front``'s world (``parallel.frontend.FrontEnd``) when
+    one is given, else on ``--device`` alone."""
     from ..engine import DesignSession
     from ..engine.coalescer import CoalescingDesigner, SerialDesigner
 
@@ -397,9 +410,10 @@ def build_designers(args) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here; "
                          "pass --device cpu to serve on the CPU")
+    make_session = DesignSession if front is None else front.load
     designers: dict = {}
     for model in args.model:
-        session = DesignSession(
+        session = make_session(
             model, codec=args.codec, batch_size=args.batch_size,
             device=device, compute_dtype=args.compute_dtype,
             allow_random_weights=args.allow_random_weights, quantize=args.quantize,
@@ -414,9 +428,10 @@ def build_designers(args) -> dict:
     return designers
 
 
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
-    designers = build_designers(args)
+def serve(args, front=None) -> None:
+    """Build the designers (over ``front``'s world when given), bind HTTP
+    and serve until interrupted; then close the designers."""
+    designers = build_designers(args, front)
     default_name = next(iter(designers))
     server = make_server(
         designers[default_name], args.host, args.port, default_name,
@@ -424,8 +439,11 @@ def main(argv=None) -> None:
     )
     host, port = server.server_address[:2]
     mode = "serial" if args.no_coalesce else "coalescing"
+    where = str(designers[default_name].session.device)
+    if front is not None:
+        where += f", {front.n_ranks} rank{'s' if front.n_ranks > 1 else ''}"
     print(f"Serving {', '.join(designers)} (default {default_name}, {mode}, "
-          f"{designers[default_name].session.device}) on http://{host}:{port}  "
+          f"{where}) on http://{host}:{port}  "
           "(POST /design, POST /report, GET /healthz)", flush=True)
     try:
         server.serve_forever()
@@ -435,6 +453,18 @@ def main(argv=None) -> None:
         server.server_close()
         for d in designers.values():
             d.close()
+
+
+def main(argv=None) -> None:
+    """``td-serve``: rank 0 of the world ``parallel.frontend.lead`` gives it
+    serves, the other ranks follow."""
+    from ..parallel.frontend import lead
+
+    args = build_parser().parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device here; "
+                         "pass --device cpu to serve on the CPU")
+    lead(args.device, lambda front: serve(args, front))
 
 
 if __name__ == "__main__":

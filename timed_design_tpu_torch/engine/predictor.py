@@ -129,11 +129,8 @@ class Predictor:
 
         Accepts host (numpy) or device (torch) frames; host frames go through
         pinned memory so the copy is asynchronous."""
-        batch_size = self.batch_size
-        if self.mesh is not None:
-            batch_size //= self.mesh.shape["data"]
-            lo = self.mesh.data_index * batch_size
-            chunk = chunk[lo : lo + batch_size]
+        lo, batch_size = self.local_rows()
+        chunk = chunk[lo : lo + batch_size]
         if isinstance(chunk, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(chunk))
             if self.device.type == "cuda":
@@ -146,6 +143,14 @@ class Predictor:
             padded[:n] = x
             x = padded
         return x
+
+    def local_rows(self) -> tuple[int, int]:
+        """(first row, rows) of the padded batch that ``to_device`` places:
+        the whole batch, or over a mesh this rank's share of it."""
+        if self.mesh is None:
+            return 0, self.batch_size
+        rows = self.batch_size // self.mesh.shape["data"]
+        return self.mesh.data_index * rows, rows
 
     def run_device_batch(self, x: torch.Tensor):
         """Queue the forward of a batch already placed by ``to_device`` (of

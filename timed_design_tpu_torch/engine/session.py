@@ -32,11 +32,15 @@ class DesignSession:
         allow_random_weights: bool = False,
         quantize: str | None = None,
         mesh=None,
+        predictor_cls: t.Callable[..., Predictor] = Predictor,
     ):
         """``quantize``: None, or the mode of ``models/quantize.py`` that
         every forward runs in ('int8', 'int8-fake', 'w8'). ``mesh``
         (``parallel.make_mesh``): the predictor runs each rank's rows of
-        every batch over its data axis (``Predictor``)."""
+        every batch over its data axis (``Predictor``). ``predictor_cls``
+        builds the predictor from the Predictor's arguments (the rank-0
+        front end's, ``parallel/frontend.py``, sends the other ranks their
+        rows)."""
         if isinstance(compute_dtype, str):
             compute_dtype = getattr(torch, compute_dtype)
         resolved, self.model_name = _resolve_model(
@@ -48,8 +52,8 @@ class DesignSession:
             codec = spec.codec if spec else "CNOCACB"
         self.codec = Codec.from_string(codec) if isinstance(codec, str) else codec
         self.gaussian = gaussian
-        self.predictor = Predictor(resolved, batch_size=batch_size, device=device,
-                                   quantize=quantize, mesh=mesh)
+        self.predictor = predictor_cls(resolved, batch_size=batch_size, device=device,
+                                       quantize=quantize, mesh=mesh)
         self.last_timings: dict[str, float] = {}
 
     @property

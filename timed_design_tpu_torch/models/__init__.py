@@ -13,6 +13,7 @@ from .convert import (  # noqa: F401
 )
 from .densenet import DenseNet3D, densecpd, densenet  # noqa: F401
 from .keras_export import export_timed_to_h5  # noqa: F401
+from .layers import ConvBlock, global_average_pool_3d, spatial_dropout_3d  # noqa: F401
 from .keras_import import KerasH5Model, import_timed_params, load_keras_model  # noqa: F401
 from .optimize import fold_timed_bn, timed_inference_apply  # noqa: F401
 from .prodconn import ProDCoNN, prodconn  # noqa: F401

@@ -55,7 +55,7 @@ def initialize_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
     device: torch.device | str | None = None,
-    timeout_s: float = TIMEOUT_S,
+    timeout_s: float | None = None,
 ) -> tuple[int, int]:
     """Join the world this process belongs to; returns ``(process_index,
     process_count)``.
@@ -70,7 +70,8 @@ def initialize_distributed(
     NCCL and takes the card ``LOCAL_RANK`` names (else its process id); a
     CPU rank talks gloo. A CUDA rank where NCCL is unavailable, or whose
     card does not exist, raises: it never drops to gloo or to the CPU.
-    ``timeout_s`` bounds every collective of the world."""
+    ``timeout_s`` bounds every collective of the world (default
+    ``TIMEOUT_S``, read at the call)."""
     joining = coordinator_address is not None or (
         not dist.is_initialized() and "WORLD_SIZE" in os.environ)
     if not joining:
@@ -101,7 +102,8 @@ def initialize_distributed(
         backend = "nccl"
     else:
         backend = "gloo"
-    dist.init_process_group(backend, timeout=datetime.timedelta(seconds=timeout_s), **init)
+    timeout = datetime.timedelta(seconds=TIMEOUT_S if timeout_s is None else timeout_s)
+    dist.init_process_group(backend, timeout=timeout, **init)
     return dist.get_rank(), dist.get_world_size()
 
 

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .distributed import TIMEOUT_S, _world, comm_device, initialize_distributed
+from . import distributed
+from .distributed import _world, comm_device, initialize_distributed
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -69,7 +70,7 @@ def make_mesh(
     n_data: int | None = None,
     n_model: int = 1,
     devices: t.Sequence[int] | None = None,
-    timeout_s: float = TIMEOUT_S,
+    timeout_s: float | None = None,
 ) -> Mesh:
     """Build a (data, model) mesh over the world's ranks (``devices``: the
     world ranks to lay it over, one card each; default every rank).
@@ -78,7 +79,8 @@ def make_mesh(
     inference and training with replicated weights. Every rank of the world
     calls it (process groups are made collectively); a mesh the world
     cannot hold raises, and so does a rank outside the mesh it asked for.
-    ``timeout_s`` bounds every collective of the mesh's groups."""
+    ``timeout_s`` bounds every collective of the mesh's groups (default
+    the world's ``TIMEOUT_S``, read at the call)."""
     rank, world = _world()
     devices = list(range(world) if devices is None else devices)
     if n_data is None:
@@ -95,7 +97,7 @@ def make_mesh(
     shape = {"data": n_data, "model": n_model}
     if not dist.is_initialized():
         return Mesh(shape, use, rank)
-    timeout = datetime.timedelta(seconds=timeout_s)
+    timeout = datetime.timedelta(seconds=distributed.TIMEOUT_S if timeout_s is None else timeout_s)
     grid = np.array(use).reshape(n_data, n_model)
     # new_group is collective over the whole world: every rank makes every
     # group, in the same order, and keeps its own

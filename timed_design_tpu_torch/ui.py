@@ -26,6 +26,13 @@ imports neither pandas (charts take a dict of columns, labels named by
 matplotlib is missing each figure's place holds an error naming it and the
 rest of the page draws); the Monte-Carlo draws are the port's Philox draws.
 
+Across cards, as the JAX app splits every batch over all local chips: with
+``--device cuda`` and more than one visible card, the app's process is rank
+0 of a world of one process per card (``parallel/frontend.py``), started once
+per Streamlit process and kept at module level there; every browser session
+and every rerun designs through it, under its lock. With one card, or
+``--device cpu``, the app is one process.
+
 Run:  streamlit run timed_design_tpu_torch/ui.py -- --path_to_models models/ [--device cpu]
 """
 from __future__ import annotations
@@ -466,6 +473,7 @@ def main(argv=None):  # noqa: C901 - UI flow
     from timed_design_tpu_torch.constants import AA1, compress_rotamer_probs
     from timed_design_tpu_torch.engine import DesignSession
     from timed_design_tpu_torch.models import MODEL_REGISTRY
+    from timed_design_tpu_torch.parallel.frontend import shared_front_end
     from timed_design_tpu_torch.structure import create_residue_map
 
     st.set_page_config(page_title="TIMED-Design (GPU)", layout="wide")
@@ -534,6 +542,10 @@ def main(argv=None):  # noqa: C901 - UI flow
     import hashlib
     import time
 
+    # across cards: every rank builds the session, rank 0 (this process)
+    # sends each its rows (None: this process alone)
+    front = shared_front_end(device)
+    make_session = DesignSession if front is None else front.load
     sessions: list[tuple[str, object]] = []  # (model_arg, DesignSession)
     for name in model_list:
         h5_path = model_options.get(name)
@@ -548,7 +560,7 @@ def main(argv=None):  # noqa: C901 - UI flow
         session_key = f"session::{model_arg}"
         if session_key not in st.session_state:
             try:
-                st.session_state[session_key] = DesignSession(
+                st.session_state[session_key] = make_session(
                     model_arg, codec=m_spec.codec if m_spec else None,
                     batch_size=args.batch_size, device=device,
                     allow_random_weights=cfg["demo_random"],

@@ -2,7 +2,7 @@
 frame dataset writer of ``td-voxelize`` and the in-memory frame sets of
 ``td-predict --voxelize``."""
 from .codec import Codec  # noqa: F401
-from .frames import FrameAtoms, frame_bases, structure_to_frame_atoms  # noqa: F401
+from .frames import CB_FRAME_OFFSET, FrameAtoms, frame_bases, structure_to_frame_atoms  # noqa: F401
 from .voxelize import voxelize, voxelize_frame_atoms  # noqa: F401
 from .dataset import (  # noqa: F401
     FrameBatchSource,
