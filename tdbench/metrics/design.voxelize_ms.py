@@ -1,0 +1,9 @@
+"""The mean over answered /design requests of the `timings_s` stage
+`voxelisation`, in ms."""
+
+
+def read(record):
+    done = [r for r in record.get("requests", []) if r.get("status") == 200]
+    if not done:
+        return None
+    return 1e3 * sum(r["timings_s"]["voxelisation"] for r in done) / len(done)
