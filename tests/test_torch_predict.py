@@ -664,7 +664,8 @@ def test_stale_datasetmap_is_regenerated_hdf5(tmp_path, jax_hdf5, jax_flat, ckpt
 
 
 def test_profile_writes_a_trace(tmp_path, structures, ckpts):
-    """--profile DIR writes a torch.profiler chrome trace there."""
+    """--profile DIR writes a torch.profiler chrome trace there, and the
+    port's spans beside it in the same format."""
     import json
 
     argv = ["--voxelize", "--path_to_dataset", str(structures / "b" / "Ains.pdb"),
@@ -672,6 +673,11 @@ def test_profile_writes_a_trace(tmp_path, structures, ckpts):
     _run_port(argv, tmp_path / "out", ["--profile", str(tmp_path / "trace")])
     trace = json.loads((tmp_path / "trace" / "td_predict_trace.json").read_text())
     assert any("conv3d" in e.get("name", "") for e in trace["traceEvents"])
+    spans = json.loads((tmp_path / "trace" / "td_predict_spans.json").read_text())
+    names = {e["name"] for e in spans["traceEvents"] if e["ph"] == "X"}
+    assert {"frame_set", "frame_set.parse", "frame_set.frame_atoms", "frame_set.index",
+            "td_predict", "predict", "next_batch", "fetch_wait", "write_batch"} <= names
+    assert spans["otherData"]["counters"]["voxelize.pairs_real"] > 0
     assert len(_fasta(tmp_path / "out" / "TIMED.fasta")[">AinsA"]) == 12
 
 

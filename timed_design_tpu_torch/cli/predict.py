@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import time
 from pathlib import Path
 
@@ -85,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Conv compute dtype (float32 default, for strict CSV parity)")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="Write a torch.profiler trace of the run to DIR "
-                        "(chrome trace JSON)")
+                        "(chrome trace JSON), and the port's spans beside it "
+                        "(td_predict_spans.json)")
     p.add_argument("--ensemble", action="store_true",
                    help="Also average the models' probability matrices and "
                         "emit the full artifact set as 'ensemble' "
@@ -153,53 +155,60 @@ def _predict(args, dataset_path: Path, is_hdf5: bool, mesh):
     ).validate()
 
     from ..engine import load_dataset_and_predict
+    from ..utils.timing import chrome_trace, recording
     from ..voxel import make_frame_set
 
-    if is_hdf5:
-        dataset = dataset_path
-        print(f"Reading frames from {dataset_path}")
-    else:
-        pdbs = sorted(dataset_path.glob("**/*.pdb*")) if dataset_path.is_dir() else [dataset_path]
-        t0 = time.perf_counter()
-        # NMR consensus needs every state as a structure <pdb>_<i>
-        dataset = make_frame_set(pdbs, codec=args.codec,
-                                 voxelise_all_states=args.is_structure_nmr)
-        print(f"Read {len(pdbs)} structure file(s) in {time.perf_counter() - t0:.2f}s; "
-              f"frames are voxelized on {args.device}, batch by batch")
+    # --profile: the port's spans too, from the frame set on
+    spans = recording() if args.profile and writer else contextlib.nullcontext()
+    with spans as rec:
+        if is_hdf5:
+            dataset = dataset_path
+            print(f"Reading frames from {dataset_path}")
+        else:
+            pdbs = (sorted(dataset_path.glob("**/*.pdb*")) if dataset_path.is_dir()
+                    else [dataset_path])
+            t0 = time.perf_counter()
+            # NMR consensus needs every state as a structure <pdb>_<i>
+            dataset = make_frame_set(pdbs, codec=args.codec,
+                                     voxelise_all_states=args.is_structure_nmr)
+            print(f"Read {len(pdbs)} structure file(s) in {time.perf_counter() - t0:.2f}s; "
+                  f"frames are voxelized on {args.device}, batch by batch")
 
-    profile_cm = contextlib.nullcontext()
-    if args.profile and writer:
-        from torch.profiler import ProfilerActivity, profile
+        profile_cm = contextlib.nullcontext()
+        if args.profile and writer:
+            from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU]
-        if torch.device(args.device).type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        profile_cm = profile(activities=acts)
-    with profile_cm as prof:
-        result = load_dataset_and_predict(
-            cfg.path_to_model,
-            dataset,
-            batch_size=cfg.batch_size,
-            start_batch=cfg.start_batch,
-            dataset_map_path=cfg.path_to_datasetmap,
-            blacklist=cfg.path_to_blacklist,
-            predict_rotamers=cfg.predict_rotamers,
-            is_consensus=cfg.is_structure_nmr,
-            path_to_output=cfg.path_to_output,
-            device=args.device,
-            compute_dtype=getattr(torch, args.compute_dtype),
-            allow_random_weights=args.allow_random_weights,
-            ensemble=args.ensemble,
-            quantize=args.quantize,
-            mesh=mesh,
-        )
+            acts = [ProfilerActivity.CPU]
+            if torch.device(args.device).type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            profile_cm = profile(activities=acts)
+        with profile_cm as prof:
+            result = load_dataset_and_predict(
+                cfg.path_to_model,
+                dataset,
+                batch_size=cfg.batch_size,
+                start_batch=cfg.start_batch,
+                dataset_map_path=cfg.path_to_datasetmap,
+                blacklist=cfg.path_to_blacklist,
+                predict_rotamers=cfg.predict_rotamers,
+                is_consensus=cfg.is_structure_nmr,
+                path_to_output=cfg.path_to_output,
+                device=args.device,
+                compute_dtype=getattr(torch, args.compute_dtype),
+                allow_random_weights=args.allow_random_weights,
+                ensemble=args.ensemble,
+                quantize=args.quantize,
+                mesh=mesh,
+            )
     if not writer:
         return None
     if args.profile:
         trace = Path(args.profile) / "td_predict_trace.json"
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
-        print(f"Profiler trace written to {trace}")
+        spans_file = trace.with_name("td_predict_spans.json")
+        spans_file.write_text(json.dumps(chrome_trace(rec)))
+        print(f"Profiler trace written to {trace}, the port's spans to {spans_file}")
     print(f"Predicted {sum(len(s) for s in result.pdb_to_sequence.values())} residues "
           f"across {len(result.pdb_to_sequence)} chains.")
     for phase, secs in result.timings.items():

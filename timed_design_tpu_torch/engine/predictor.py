@@ -21,7 +21,6 @@ import dataclasses
 import queue
 import sys
 import threading
-import time
 import typing as t
 from pathlib import Path
 
@@ -62,6 +61,7 @@ from ..parallel import barrier, replicate
 from ..parallel.distributed import process_index
 from ..parallel.mesh import Mesh, batch_over
 from ..utils import PhaseTimer
+from ..utils.timing import device_span, span, traced
 from ..voxel.dataset import FrameBatchSource, FrameSet, create_flat_dataset_map
 
 
@@ -264,6 +264,7 @@ class PredictionResult:
     pdb_to_consensus_prob: dict[str, np.ndarray] | None
     timings: dict[str, float] = dataclasses.field(default_factory=dict)
     # of the predict phase, the seconds the loop waited for the next batch
+    # (its ``next_batch`` phase)
     loader_wait_s: float = 0.0
 
 
@@ -299,6 +300,7 @@ def _datasetmap_matches_dataset(dmap: DatasetMap, dataset_path: Path) -> bool:
         return False
 
 
+@traced("td_predict")
 def load_dataset_and_predict(
     models: list,
     dataset: FrameSet | Path | str,
@@ -339,6 +341,12 @@ def load_dataset_and_predict(
     file name in ``path_to_output``. Batches follow the map. The result's
     ``loader_wait_s`` is the time the loop waited for the next batch.
 
+    Spans (``utils/timing.py``): ``td_predict`` around the call; its phases
+    (``timings``); a batch's ``next_batch`` (the loader), ``forward`` (a
+    device span around the models' forwards), ``fetch_wait`` (this thread
+    blocked on the batch's results) and ``write_batch`` (on the
+    ``csv-writer`` thread), each with the batch's index as its id.
+
     ``start_batch`` resumes: the CSVs are appended from that batch on, then
     read back whole for decoding, and the one-hot ``{model}.csv`` is
     regenerated from the read-back matrix. ``ensemble`` averages the models'
@@ -352,7 +360,7 @@ def load_dataset_and_predict(
     process index 0 alone writes, and settles the map before the other
     ranks read it. The other ranks return None.
     """
-    timer = PhaseTimer()
+    timer, waits = PhaseTimer(), PhaseTimer()
     path_to_output = Path.cwd() if path_to_output is None else Path(path_to_output)
     device = resolve_device(device, mesh)
     filter_list = get_pdb_keys_to_filter(blacklist) if blacklist else []
@@ -438,7 +446,6 @@ def load_dataset_and_predict(
             )
 
     resuming = start_batch > 0
-    loader_wait = 0.0
     if from_frames:
         rows = None
         if mesh is not None:  # voxelize this rank's rows only (Predictor.to_device's)
@@ -519,7 +526,9 @@ def load_dataset_and_predict(
                         if item is stop:
                             return
                         if not writer_err:  # after an error, drain without writing
-                            _write_batch(*item)
+                            *batch, index = item
+                            with span("write_batch", index):
+                                _write_batch(*batch)
                     except BaseException as e:  # noqa: BLE001 - re-raised on the caller's thread
                         writer_err.append(e)
                     finally:
@@ -531,29 +540,29 @@ def load_dataset_and_predict(
             def _drain_one():
                 # the wait for the device stays on this thread: it throttles
                 # the launches (at most max_in_flight batches queued)
-                outs, y, n = pending.popleft()
-                outs_np = [Predictor.fetch(h, n) for h in outs]
+                outs, y, n, index = pending.popleft()
+                with span("fetch_wait", index):
+                    outs_np = [Predictor.fetch(h, n) for h in outs]
                 if writer_err:
                     raise writer_err[0]
                 if writer:
-                    write_q.put((outs_np, y, n))
+                    write_q.put((outs_np, y, n, index))
 
+            batches = iter(source)
             try:
-                batches = iter(source)
-                while True:
-                    t_wait = time.perf_counter()
-                    batch = next(batches, None)
-                    loader_wait += time.perf_counter() - t_wait
-                    if batch is None:
-                        break
-                    X, y, n_valid = batch
+                for index in range(start_batch, source.n_batches):
+                    with waits.phase("next_batch", index):
+                        X, y, n_valid = next(batches)
                     x_dev = predictors[0].to_device(X)
-                    pending.append(([p.run_device_batch(x_dev) for p in predictors], y, n_valid))
+                    with device_span("forward", index, device=device):
+                        outs = [p.run_device_batch(x_dev) for p in predictors]
+                    pending.append((outs, y, n_valid, index))
                     if len(pending) >= max_in_flight:
                         _drain_one()
                 while pending:
                     _drain_one()
             finally:
+                batches.close()
                 write_q.put(stop)
                 writer_th.join()
             if writer_err:
@@ -612,6 +621,7 @@ def load_dataset_and_predict(
                 save_consensus_probs(decoded.pdb_to_consensus_prob, model_name, path_to_output)
         return decoded, probs
 
+    loader_wait_s = waits.phases.get("next_batch", 0.0)
     result: PredictionResult | None = None
     for model_i, (predictor, (_, model_name)) in enumerate(zip(predictors, resolved_models)):
         probs = (np.concatenate(decode_parts[model_i]) if decode_parts[model_i]
@@ -624,13 +634,13 @@ def load_dataset_and_predict(
             m = np.asarray(full_probs, dtype=np.float64)
             ens_sum = m if ens_sum is None else ens_sum + m
         result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary(),
-                                  loader_wait_s=loader_wait)
+                                  loader_wait_s=loader_wait_s)
 
     if ensemble:
         decoded, _ = _emit_outputs(ens_sum / n_models, "ensemble", read_back=False,
                                    write_csv=True)
         result = PredictionResult(dmap, *decoded.astuple(), timings=timer.summary(),
-                                  loader_wait_s=loader_wait)
+                                  loader_wait_s=loader_wait_s)
     return result
 
 

@@ -52,6 +52,7 @@ from ..models import (
     state_dict_to_flax_variables,
     state_dict_to_prodconn_variables,
 )
+from ..utils.timing import device_span, span, traced
 
 # family -> (state_dict -> Flax variables, Flax variables -> state_dict)
 _LAYOUTS = (
@@ -397,6 +398,7 @@ def init_train_state(
     return TrainState(module, torch.optim.Adam(module.parameters(), lr=learning_rate))
 
 
+@traced("train.fit")
 def fit(
     module: nn.Module,
     loader: t.Iterable,
@@ -440,6 +442,13 @@ def fit(
     (``fill_batch``) and each rank steps on its rows; the dropout masks
     come from a generator per data index (``seed * n_data + data_index``),
     shared by a data row's model ranks.
+
+    Spans (``utils/timing.py``), each with the step number as its id:
+    ``train.fit`` around the call, ``train.next_batch`` (the loader's
+    ``next``), ``train.step`` (the batch to the device and the step's
+    launch), ``train.log`` (the metrics read every ``log_every`` steps,
+    which waits for the device) and the device span ``train.step_device``
+    (forward, backward and Adam on the card).
     """
     if patience is not None and val_loader is None:
         raise ValueError("patience requires a val_loader to monitor")
@@ -459,7 +468,13 @@ def fit(
     best_weights = None
     epochs_since_best = 0
     for epoch in range(epochs):
-        for X, y, n_valid in loader:
+        batches = iter(loader)
+        while True:
+            with span("train.next_batch", state.step):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            X, y, n_valid = batch
             if state.step == 0:
                 if y.shape[1] != n_classes:
                     raise ValueError(
@@ -471,14 +486,18 @@ def fit(
                         f"loader yields {X.shape[-1]}-channel frames but "
                         f"input_channels={input_channels}"
                     )
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr(state.step)
-            X, y = fill_batch(X, y, n_valid, n_data)
-            if mesh is not None:
-                X, y = shard_batch(X, mesh), shard_batch(y, mesh)
-            metrics = step_fn(_to_device(X, device), _to_device(y, device), generator)
+            with span("train.step", state.step):
+                for group in state.optimizer.param_groups:
+                    group["lr"] = lr(state.step)
+                X, y = fill_batch(X, y, n_valid, n_data)
+                if mesh is not None:
+                    X, y = shard_batch(X, mesh), shard_batch(y, mesh)
+                X, y = _to_device(X, device), _to_device(y, device)
+                with device_span("train.step_device", state.step, device=device):
+                    metrics = step_fn(X, y, generator)
             if state.step % log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                with span("train.log", state.step):
+                    m = {k: float(v) for k, v in metrics.items()}
                 print(f"step {state.step}: loss={m['loss']:.4f} top1={m['top1']:.3f} "
                       f"top3={m['top3']:.3f}")
             state.step += 1

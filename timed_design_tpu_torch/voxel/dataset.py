@@ -35,6 +35,7 @@ from ..io.datasetmap import DatasetMap, _residue_sort_key
 from ..io.h5frames import bf16_bits
 from ..ops.matmul_voxelize import voxelize_matmul
 from ..structure import Structure, load_pdb
+from ..utils import timing
 from ..utils.timing import PhaseTimer
 from .codec import Codec
 from .frames import FrameAtoms, structure_to_frame_atoms
@@ -278,13 +279,20 @@ class FrameSet:
         order, on ``device``, in one voxelizer call: each frame sees every
         atom of its own structure, padded to the call's largest structure.
         Only the indices cross to the device, pinned on a card, so the copy
-        queues behind the device's work instead of waiting for it."""
+        queues behind the device's work instead of waiting for it. While the
+        span recorder is on (``utils/timing.py``) it counts the frame-atom
+        pairs computed, frames x the padded atom count, and those of each
+        frame's own structure (``voxelize.pairs_computed``,
+        ``voxelize.pairs_real``)."""
         if device not in self._tables:
             self._tables[device] = (torch.from_numpy(self._atoms).to(device),
                                     torch.from_numpy(self._frames).to(device))
         atoms, frames = self._tables[device]
         ids, slot = np.unique(structure, return_inverse=True)
         S, n, A = len(ids), len(row), int(self._atom_count[ids].max())
+        if timing.is_recording():
+            timing.count("voxelize.pairs_real", int(self._atom_count[structure].sum()))
+            timing.count("voxelize.pairs_computed", n * A)
         host = torch.from_numpy(np.concatenate([
             self._atom_start[ids], self._atom_count[ids], slot.ravel(),
             self._row_start[structure] + row]))
@@ -305,6 +313,7 @@ class FrameSet:
         )
 
 
+@timing.traced("frame_set")
 def make_frame_set(
     structure_paths: t.Sequence[Path],
     codec: Codec | str = "CNOCACB",
@@ -314,19 +323,26 @@ def make_frame_set(
     its default settings (backbone atoms, an imputed CB), kept in memory as
     frame atoms; the frames themselves are made on the device, batch by
     batch. ``voxelise_all_states`` keeps every NMR state as a structure
-    ``<pdb>_<state>``, the states aligned on their common residues."""
+    ``<pdb>_<state>``, the states aligned on their common residues.
+
+    Spans (``utils/timing.py``): ``frame_set`` around the call,
+    ``frame_set.parse`` and ``frame_set.frame_atoms`` for each file,
+    ``frame_set.index`` around the ``FrameSet``'s tables."""
     if isinstance(codec, str):
         codec = Codec.from_string(codec)
     structures: list[tuple[str, FrameAtoms]] = []
     for path in structure_paths:
-        states = load_pdb(Path(path), all_states=voxelise_all_states)
+        with timing.span("frame_set.parse"):
+            states = load_pdb(Path(path), all_states=voxelise_all_states)
         if not isinstance(states, list):
             states = [states]
-        fas = [structure_to_frame_atoms(s, codec) for s in states]
-        if len(fas) > 1:
-            fas = _align_states(fas, name=states[0].name)
+        with timing.span("frame_set.frame_atoms"):
+            fas = [structure_to_frame_atoms(s, codec) for s in states]
+            if len(fas) > 1:
+                fas = _align_states(fas, name=states[0].name)
         structures += [(s.name, fa) for s, fa in zip(states, fas)]
-    return FrameSet(structures, codec)
+    with timing.span("frame_set.index"):
+        return FrameSet(structures, codec)
 
 
 def _byte_order(name: str) -> bytes:
@@ -385,7 +401,8 @@ class FrameBatchSource:
     from (``FrameSet.voxelize_rows``), so the device holds a batch of frames
     at a time, never the whole input, and a shuffled batch over thousands of
     structures costs one call, not one per structure. An entry absent from
-    the frame set raises KeyError.
+    the frame set raises KeyError. The call is a ``voxelize`` device span
+    (``utils/timing.py``), its id the batch's index.
 
     ``shuffle=True`` (training) draws a fresh permutation of the entries on
     every ``__iter__``, that is every epoch, from one
@@ -430,14 +447,16 @@ class FrameBatchSource:
         for i, (s, r) in enumerate(zip(structure, row)):
             y[i, fs.label_index[s][r]] = 1.0
         if self.rows is None:
-            X = fs.voxelize_rows(structure, row, self.device)
+            with timing.device_span("voxelize", index, device=self.device):
+                X = fs.voxelize_rows(structure, row, self.device)
             if n < B:
                 X = torch.cat([X, X.new_zeros((B - n, *fs.frame_shape))])
             return X, y, n
         lo, hi, _ = self.rows.indices(n)
         X = torch.zeros((B, *fs.frame_shape), device=self.device)
         if hi > lo:
-            X[lo:hi] = fs.voxelize_rows(structure[lo:hi], row[lo:hi], self.device)
+            with timing.device_span("voxelize", index, device=self.device):
+                X[lo:hi] = fs.voxelize_rows(structure[lo:hi], row[lo:hi], self.device)
         return X, y, n
 
     def __iter__(self) -> t.Iterator[tuple[torch.Tensor, np.ndarray, int]]:
