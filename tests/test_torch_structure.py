@@ -62,19 +62,90 @@ def test_convert_seq_to_property_equals_jax_package(prop):
     assert convert_seq_to_property(seq, prop) == jax_convert(seq, prop)
 
 
-def _edge_cases() -> dict[str, str]:
-    """The PDB texts of tests/test_pdb_edge_cases.py, by fixture name."""
+def _edge_module():
     spec = importlib.util.spec_from_file_location(
         "_pdb_edge_cases", REPO / "tests" / "test_pdb_edge_cases.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return {k: getattr(mod, k)() + "END\n" for k in dir(mod) if k.startswith("fx_")}
+    return mod
+
+
+def _edge_cases() -> dict[str, str]:
+    """The PDB texts of tests/test_pdb_edge_cases.py, by fixture name, and
+    those of ``_parser_cases``."""
+    mod = _edge_module()
+    texts = {k: getattr(mod, k)() for k in dir(mod) if k.startswith("fx_")}
+    return {k: v + "END\n" for k, v in {**texts, **_parser_cases(mod)}.items()}
 
 
 EDGE_CASES = ["fx_ca_only", "fx_chain_break", "fx_duplicate_resseq", "fx_garbage_coords",
               "fx_header_only", "fx_icodes", "fx_many_chains", "fx_missing_ca",
               "fx_missing_nc", "fx_models_differ", "fx_mse_hetatm", "fx_negative_resseq",
               "fx_only_waters", "fx_uncommon_hyp", "fx_waters_and_ligand"]
+
+
+def _parser_cases(mod) -> dict[str, str]:
+    """PDB texts for the paths of the parser's array passes that the edge
+    cases above leave out, made with their line helpers (``mod``)."""
+    atom, bb = mod.atom, mod.bb
+
+    def no_element(line: str) -> str:
+        return line[:66] + "\n"  # the line ends after the B-factor
+
+    return {
+        # A and B conformers sharing blank atoms; a residue with B and C
+        # only (B kept); GLY A / SER B at one position (A's atoms only)
+        "altloc_shared_and_b_only": (
+            atom(1, "N", "SER", "A", 1, 0, 0, 0) + atom(2, "CA", "SER", "A", 1, 1.5, 0, 0)
+            + atom(3, "CB", "SER", "A", 1, 2, 1, 1, altloc="A")
+            + atom(4, "CB", "SER", "A", 1, 2, -1, 1, altloc="B")
+            + atom(5, "OG", "SER", "A", 1, 3, 1, 1, altloc="A")
+            + atom(6, "OG", "SER", "A", 1, 3, -1, 1, altloc="B")
+            + atom(7, "C", "SER", "A", 1, 2.5, 1, 0) + atom(8, "O", "SER", "A", 1, 3.5, 1, 1)
+            + bb(9, "VAL", "A", 2, 4.0).replace(" VAL", "BVAL")
+            + bb(13, "VAL", "A", 2, 4.3).replace(" VAL", "CVAL")
+            + bb(17, "GLY", "A", 3, 8.0).replace(" GLY", "AGLY")
+            + bb(21, "SER", "A", 3, 8.2).replace(" SER", "BSER")
+            + atom(25, "OG", "SER", "A", 3, 9, 1, 1, altloc="B")
+            + bb(26, "LEU", "A", 4, 12.0)),
+        "interleaved_chains": (bb(1, "ALA", "A", 1) + bb(5, "GLY", "B", 1, 4.0)
+                               + bb(9, "VAL", "A", 2, 8.0) + bb(13, "SER", "B", 2, 12.0)
+                               + bb(17, "LEU", "C", 1, 16.0) + bb(21, "LYS", "A", 3, 20.0)),
+        "split_residue": (bb(1, "ALA", "A", 1, names=("N", "CA"))
+                          + bb(3, "GLY", "A", 2, 4.0)
+                          + bb(7, "ALA", "A", 1, names=("N", "C", "O"))
+                          + atom(10, "CB", "ALA", "A", 1, 2, 2, 2)),
+        "duplicate_atom_name": (bb(1, "ALA", "A", 1)
+                                + atom(5, "CA", "ALA", "A", 1, 9, 9, 9, element="SE")
+                                + atom(6, "CB", "ALA", "A", 1, 2, 2, 2)
+                                + atom(7, "CB", "ALA", "A", 1, 3, 3, 3)
+                                + bb(8, "GLY", "A", 2, 4.0)),
+        # the element column absent on some lines: inferred from the atom
+        # name's first letter (FE -> F, 1HB -> H); present ones capitalised
+        "element_column_absent": (
+            "".join(no_element(l) for l in bb(1, "ALA", "A", 1).splitlines())
+            + no_element(atom(5, "1HB", "ALA", "A", 1, 2, 2, 2))
+            + atom(6, "CB", "ALA", "A", 1, 2, 1, 2, element="c")
+            + bb(7, "MSE", "A", 2, 4.0)
+            + atom(11, "SE", "MSE", "A", 2, 6, 2, 2, element="SE")
+            + no_element(atom(12, "FE", "HEM", "A", 3, 9, 9, 9, record="HETATM"))
+            + atom(13, "ZN", "ZN", "A", 4, 12, 9, 9, element="zn", record="HETATM")
+            + no_element(atom(14, "CL", "CL", "A", 5, 15, 9, 9, record="HETATM"))),
+        # non-standard HETATM residues between standard ones (kept only
+        # with keep_hetatms=True), a water, an uncommon residue
+        "nonstandard_hetatm": (
+            bb(1, "ALA", "A", 1)
+            + atom(5, "C1", "NAG", "A", 2, 5, 5, 5, record="HETATM")
+            + atom(6, "O5", "NAG", "A", 2, 6, 5, 5, record="HETATM")
+            + bb(7, "SEP", "A", 3, 8.0, record="HETATM")
+            + atom(11, "O", "HOH", "B", 1, 20, 20, 20, record="HETATM")
+            + bb(12, "GLY", "A", 4, 12.0)
+            + atom(16, "FE", "HEM", "A", 5, 25, 20, 20, element="FE", record="HETATM")),
+    }
+
+
+PARSER_CASES = ["altloc_shared_and_b_only", "interleaved_chains", "split_residue",
+                 "duplicate_atom_name", "element_column_absent", "nonstandard_hetatm"]
 
 
 def _assert_same(got, want, where="structure"):
@@ -117,7 +188,7 @@ def scanner(request, monkeypatch):
     return request.param
 
 
-@pytest.mark.parametrize("case", ["1ubq"] + EDGE_CASES)
+@pytest.mark.parametrize("case", ["1ubq"] + EDGE_CASES + PARSER_CASES)
 def test_parse_pdb_string_equals_jax_package(case, scanner, ubq_pdb_gz):
     from timed_design_tpu.structure import parse_pdb_string as jax_parse
 
@@ -126,13 +197,15 @@ def test_parse_pdb_string_equals_jax_package(case, scanner, ubq_pdb_gz):
     text = (gzip.decompress(ubq_pdb_gz.read_bytes()).decode() if case == "1ubq"
             else _edge_cases()[case])
     for all_states in (False, True):
-        try:
-            want = jax_parse(text, name=case, all_states=all_states)
-        except ValueError as e:
-            with pytest.raises(ValueError, match=str(e)):
-                parse_pdb_string(text, name=case, all_states=all_states)
-            continue
-        _assert_same(parse_pdb_string(text, name=case, all_states=all_states), want)
+        for keep_hetatms in (False, True):
+            kw = dict(name=case, all_states=all_states, keep_hetatms=keep_hetatms)
+            try:
+                want = jax_parse(text, **kw)
+            except ValueError as e:
+                with pytest.raises(ValueError, match=str(e)):
+                    parse_pdb_string(text, **kw)
+                continue
+            _assert_same(parse_pdb_string(text, **kw), want)
 
 
 def test_load_pdb_and_backbone_equal_jax_package(ubq_pdb_gz, monkeypatch):

@@ -119,6 +119,35 @@ def test_make_frame_set_spans(tmp_path):
     assert all(s.parent == whole.index for s in rec.spans if s is not whole)
 
 
+@pytest.mark.parametrize("scanner", ["native", "python"])
+def test_make_frame_set_counters(tmp_path, scanner, monkeypatch):
+    """``frame_set.atoms`` counts the atom records of every file; the
+    Python scanner counts a file in ``frame_set.python_scans``, the C++
+    one none."""
+    import timed_design_tpu_torch.structure._native as native
+    from tdbench import structures
+    from timed_design_tpu_torch.voxel import make_frame_set
+
+    if scanner == "native":
+        assert native.native_available()
+    else:
+        monkeypatch.setattr(native, "scan_pdb_native", lambda text: None)
+    rng = np.random.default_rng(3000000017)
+    paths, records = [], 0
+    for i, chains in enumerate((1, 3, 2)):
+        text = structures.backbone_text(rng, chains * structures.RESIDUES_PER_CHAIN)
+        records += sum(line.startswith("ATOM") for line in text.splitlines())
+        paths.append(tmp_path / f"s{i}.pdb")
+        paths[-1].write_text(text)
+    with recording() as rec:
+        make_frame_set(paths)
+    assert records > 0
+    assert rec.counters == {"frame_set.atoms": records,
+                            "frame_set.python_scans": 0 if scanner == "native" else 3}
+    make_frame_set(paths[:1])  # off: nothing counted
+    assert rec.counters["frame_set.atoms"] == records
+
+
 def test_pad_counters_by_hand():
     """Two structures of 1ubq's N atoms and of 150: a call on rows of the
     first once and of the second twice computes 3 x N pairs, of which

@@ -3,6 +3,9 @@
 Both sides get the same 1ubq atom arrays; the port runs on the CPU.
 Tolerance 1e-5: float32 matrix products summed in a different order.
 """
+import functools
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +39,79 @@ def test_frame_atoms_match_jax(ubq, codec):
     for field in ("atoms_xyz", "atom_channel", "atom_sigma", "atom_prop", "ca", "rot", "valid"):
         np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
     assert (a.labels, a.chain_ids, a.residue_ids) == (b.labels, b.chain_ids, b.residue_ids)
+
+
+FRAME_CASES = ["fx_ca_only", "fx_chain_break", "fx_duplicate_resseq", "fx_garbage_coords",
+               "fx_icodes", "fx_many_chains", "fx_missing_ca", "fx_missing_nc",
+               "fx_models_differ", "fx_mse_hetatm", "fx_negative_resseq", "fx_uncommon_hyp",
+               "fx_waters_and_ligand", "altloc_shared_and_b_only", "interleaved_chains",
+               "split_residue", "duplicate_atom_name", "element_column_absent",
+               "nonstandard_hetatm", "six_chains"]
+
+
+@functools.lru_cache(maxsize=None)
+def _parsed(case: str):
+    """(the port's structure, the JAX package's) of a case: the PDB edge
+    cases of tests/test_torch_structure.py, or six seeded chains of the
+    benchmark's generator."""
+    from timed_design_tpu.structure import parse_pdb_string as jax_parse
+
+    from timed_design_tpu_torch.structure import parse_pdb_string
+
+    if case == "six_chains":
+        from tdbench import structures
+
+        text = structures.backbone_text(np.random.default_rng(2147483911),
+                                        6 * structures.RESIDUES_PER_CHAIN)
+    else:
+        from tests.test_torch_structure import _edge_cases
+
+        text = _edge_cases()[case]
+    return parse_pdb_string(text, name=case)[0], jax_parse(text, name=case)[0]
+
+
+@pytest.mark.parametrize("encode_cb", [True, False], ids=["cb", "no_cb"])
+@pytest.mark.parametrize("atom_filter", ["backbone", "ca", "all"])
+@pytest.mark.parametrize("codec", ["CNOCACB", "CNOCACBQ", "CNOCBCAP"])
+@pytest.mark.parametrize("case", FRAME_CASES)
+def test_frame_atoms_of_parsed_structures_match_jax(case, codec, atom_filter, encode_cb):
+    """The port's parse and frame atoms against the JAX package's, exactly:
+    the edge cases (residues with and without a frame), six chains, each
+    filter, with and without the imputed CB."""
+    from timed_design_tpu.voxel import Codec as JCodec
+    from timed_design_tpu.voxel import structure_to_frame_atoms as jax_sfa
+
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms
+
+    got, want = _parsed(case)
+    with warnings.catch_warnings(record=True) as got_warned:
+        warnings.simplefilter("always")
+        a = structure_to_frame_atoms(got, Codec.from_string(codec), encode_cb, atom_filter)
+    with warnings.catch_warnings(record=True) as want_warned:
+        warnings.simplefilter("always")
+        b = jax_sfa(want, JCodec.from_string(codec), encode_cb, atom_filter)
+    assert [str(w.message) for w in got_warned] == [str(w.message) for w in want_warned]
+    for field in ("atoms_xyz", "atom_channel", "atom_sigma", "atom_prop", "ca", "rot", "valid"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.dtype == y.dtype and x.shape == y.shape, field
+        np.testing.assert_array_equal(x, y, err_msg=field)
+    assert (a.labels, a.chain_ids, a.residue_ids) == (b.labels, b.chain_ids, b.residue_ids)
+
+
+def test_frame_cases_cover_frames_dropped_and_kept():
+    """Among the cases, some structures have residues without a frame
+    (dropped with a warning) and some have none."""
+    from timed_design_tpu_torch.voxel import Codec, structure_to_frame_atoms
+
+    dropped = set()
+    for case in FRAME_CASES:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            structure_to_frame_atoms(_parsed(case)[0], Codec.CNOCACB())
+        if warned:
+            dropped.add(case)
+    assert {"fx_missing_ca", "fx_missing_nc", "fx_ca_only"} <= dropped
+    assert {"six_chains", "interleaved_chains", "split_residue"}.isdisjoint(dropped)
 
 
 @pytest.mark.parametrize("gaussian", [True, False], ids=["gaussian", "boolean"])

@@ -124,15 +124,30 @@ class Structure:
 
     def backbone_arrays(self) -> dict[str, np.ndarray]:
         """(R, 3) coordinate array per backbone atom name, NaN where missing,
-        one row per standard residue in file order."""
-        std = [r for r in self.residues if r.is_standard_aa]
-        out = {name: np.full((len(std), 3), np.nan, np.float32) for name in BACKBONE_ATOMS}
-        for i, res in enumerate(std):
-            for name in BACKBONE_ATOMS:
-                xyz = res.atom(name)
-                if xyz is not None:
-                    out[name][i] = xyz
-        return out
+        one row per standard residue in file order; the first atom of a name
+        in a residue, as ``Residue.atom`` gives it.
+
+        One scatter of the flat arrays, whose atoms ``res_index`` numbers by
+        residue, unless a residue's records were split apart in the file
+        (A1, A2, A1): the parser then numbers its later atoms by the other
+        residue (the JAX package's numbering), and the residues' own atoms
+        are scattered instead."""
+        std = [r for c in self.chains for r in c.residues if r.is_standard_aa]
+        counts = [len(r.atom_names) for r in std]
+        rows, names, coords = self.res_index, self.atom_names, self.coords
+        if not np.array_equal(np.bincount(rows, minlength=len(std)), counts):
+            rows = np.repeat(np.arange(len(std)), counts)
+            names = np.array([n for r in std for n in r.atom_names], "U4")
+            coords = np.concatenate([r.coords for r in std])
+        n = len(BACKBONE_ATOMS)
+        slot = np.full(len(names), n)
+        for k, name in enumerate(BACKBONE_ATOMS):
+            slot[names == name] = k
+        _, first = np.unique(rows * (n + 1) + slot, return_index=True)
+        first = first[slot[first] < n]
+        block = np.full((len(std), n, 3), np.nan, np.float32)
+        block[rows[first], slot[first]] = coords[first]
+        return {name: block[:, k] for k, name in enumerate(BACKBONE_ATOMS)}
 
     def to_pdb(self) -> str:
         """PDB text of the structure (what the SCWRL adapter hands the
@@ -217,24 +232,64 @@ def _scan_python(text: str) -> dict[str, np.ndarray]:
     }
 
 
-def parse_pdb_string(
-    text: str,
+def distinct_rows(*columns: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The rows of parallel ``columns`` by value: the index of each distinct
+    row's first occurrence, and each row's number among the distinct rows.
+
+    Columns are integers, or unicode read by their code points: no string
+    is compared or sorted. The columns' bits lie side by side in one int64
+    a row, renumbered densely wherever they would pass 63 bits."""
+    n = len(columns[0])
+    parts: list[np.ndarray] = []
+    for c in columns:
+        if c.dtype.kind == "U":
+            parts += list(np.ascontiguousarray(c).view(np.uint32)
+                          .reshape(n, c.dtype.itemsize // 4).T)
+        else:
+            parts.append(c)
+    key, used = np.zeros(n, np.int64), 0
+    for part in parts:
+        part = part.astype(np.int64)
+        part -= part.min(initial=0)
+        bits = int(part.max(initial=0)).bit_length()
+        if used + bits > 63:
+            key = np.unique(key, return_inverse=True)[1].reshape(n)
+            used = int(key.max(initial=0)).bit_length()
+        key = (key << bits) | part
+        used += bits
+    _, first, ids = np.unique(key, return_index=True, return_inverse=True)
+    return first, ids.reshape(n)
+
+
+def _objects(values: np.ndarray) -> np.ndarray:
+    """The numpy scalars of ``values`` in an object array, one object for
+    each element: gathered from it, ``tolist`` gives numpy strings."""
+    out = np.empty(len(values), object)
+    out[:] = list(values)
+    return out
+
+
+def scan_pdb_text(text: str) -> tuple[dict[str, np.ndarray], bool]:
+    """The field arrays of the ATOM/HETATM records of PDB text, and whether
+    the C++ scanner made them (else the Python one did)."""
+    from ._native import scan_pdb_native
+
+    fields = scan_pdb_native(text)
+    if fields is not None:
+        return fields, True
+    return _scan_python(text), False
+
+
+def structures_from_fields(
+    fields: dict[str, np.ndarray],
     name: str = "",
     remap_uncommon: bool = True,
     keep_hetatms: bool = False,
     all_states: bool = False,
 ) -> list[Structure]:
-    """Parse PDB text into one Structure per MODEL (the first only unless
-    ``all_states``). Uncommon residues are remapped to standard ones with
-    their backbone kept."""
-    from ._native import scan_pdb_native
-
-    fields = scan_pdb_native(text)
-    if fields is None:
-        fields = _scan_python(text)
+    """The Structures of a scan's field arrays (``parse_pdb_string``)."""
     if fields["coords"].shape[0] == 0:
         raise ValueError(f"No ATOM records found in PDB {name!r}")
-
     model_ids = np.unique(fields["model_idx"])
     if not all_states:
         model_ids = model_ids[:1]
@@ -253,126 +308,126 @@ def parse_pdb_string(
     return structures
 
 
+def parse_pdb_string(
+    text: str,
+    name: str = "",
+    remap_uncommon: bool = True,
+    keep_hetatms: bool = False,
+    all_states: bool = False,
+) -> list[Structure]:
+    """Parse PDB text into one Structure per MODEL (the first only unless
+    ``all_states``). Uncommon residues are remapped to standard ones with
+    their backbone kept."""
+    return structures_from_fields(
+        scan_pdb_text(text)[0], name, remap_uncommon, keep_hetatms, all_states)
+
+
+def _capital(element: str) -> str:
+    return element.capitalize() if len(element) > 1 else element.upper()
+
+
 def _build_structure_from_fields(
     f: dict[str, np.ndarray], name: str, remap_uncommon: bool, keep_hetatms: bool
 ) -> Structure:
-    n = f["coords"].shape[0]
+    """One model's Structure, in array passes over its field arrays; the one
+    Python loop makes the residue tree, a residue at a time."""
+    chain_cp = np.ascontiguousarray(f["chain_id"], "U1").view(np.uint32)
+    # residues keyed by (chain, res_seq, icode), in integers
+    _, res_of = distinct_rows(chain_cp, f["res_seq"], f["icode"])
     # altloc: per residue keep ONE conformer — 'A' if present, else the
     # smallest letter; blank-altloc atoms are shared and always kept, and
     # atoms of two conformers are never mixed.
-    keep = np.ones(n, bool)
-    lettered = f["altloc"] != " "
-    lettered &= f["altloc"] != ""
-    if lettered.any():
-        chosen: dict[tuple, str] = {}
-        for i in np.nonzero(lettered)[0]:
-            key = (f["chain_id"][i], int(f["res_seq"][i]), f["icode"][i])
-            al = f["altloc"][i]
-            prev = chosen.get(key)
-            chosen[key] = al if prev is None else min(al, prev)
-        for i in np.nonzero(lettered)[0]:
-            key = (f["chain_id"][i], int(f["res_seq"][i]), f["icode"][i])
-            if f["altloc"][i] != chosen[key]:
-                keep[i] = False
-    # element inference where the PDB column is absent: first alphabetic char
-    # of the atom name
-    element = f["element"].copy()
-    missing = element == ""
-    if missing.any():
-        inferred = np.array(
-            [next((c.upper() for c in an if c.isalpha()), "C") for an in f["atom_name"][missing]],
-            dtype="U2",
-        )
-        element[missing] = inferred
-    element = np.array(
-        [e.capitalize() if len(e) > 1 else e.upper() for e in element], dtype="U2"
-    )
+    altloc = np.ascontiguousarray(f["altloc"], "U1").view(np.uint32).astype(np.int64)
+    lettered = (altloc != ord(" ")) & (altloc != 0)
+    chosen = np.full(int(res_of.max()) + 1, np.iinfo(np.int64).max)
+    np.minimum.at(chosen, res_of[lettered], altloc[lettered])
+    keep = ~lettered | (altloc == chosen[res_of])
 
-    # residue identity remap + standard-ness, vectorized over unique names
-    uniq_names = {}
-    for rn in np.unique(f["res_name"]):
-        mapped = rn
+    # elements, a distinct value at a time: capitalised; where the PDB column
+    # is absent, the first letter of the atom name
+    name_first, name_of = distinct_rows(f["atom_name"])
+    el_first, el_of = distinct_rows(f["element"])
+    given = [_capital(e) for e in f["element"][el_first]]
+    inferred = np.array([next((c.upper() for c in an if c.isalpha()), "C")
+                         for an in f["atom_name"][name_first]], "U2")
+    el_table = np.array(given + [_capital(e) for e in inferred], "U2")
+    el_of = np.where(f["element"] == "", len(given) + name_of, el_of)
+    element = el_table[el_of]
+
+    # residue names remapped, and their standard-ness, a distinct name at a time
+    rn_first, rn_of = distinct_rows(f["res_name"])
+    mapped = []
+    for rn in f["res_name"][rn_first]:
         if remap_uncommon and rn not in AA3_TO_INT and rn in UNCOMMON_RESIDUE_DICT:
-            mapped = UNCOMMON_RESIDUE_DICT[rn]
-        uniq_names[rn] = (mapped, mapped in AA3_TO_INT)
-    mapped_names = np.array([uniq_names[rn][0] for rn in f["res_name"]], dtype="U3")
-    is_std = np.array([uniq_names[rn][1] for rn in f["res_name"]], bool)
+            rn = UNCOMMON_RESIDUE_DICT[rn]
+        mapped.append(rn)
+    mapped_names = np.array(mapped, "U3")[rn_of]
+    is_std = np.array([rn in AA3_TO_INT for rn in mapped], bool)[rn_of]
     if not keep_hetatms:
         keep &= ~(f["is_het"] & ~is_std)  # drop waters/ligands
 
-    idx = np.nonzero(keep)[0]
-    chains: dict[str, Chain] = {}
-    res_key_to_obj: dict[tuple, Residue] = {}
-    flat_idx: list[int] = []
-    flat_ri: list[int] = []
-    std_res_counter = -1
-    for i in idx:
-        chain_c = f["chain_id"][i]
-        key = (chain_c, int(f["res_seq"][i]), f["icode"][i])
-        res = res_key_to_obj.get(key)
-        if res is None:
-            if chain_c not in chains:
-                chains[chain_c] = Chain(chain_c, [])
-            res = Residue(
-                chain_c, int(f["res_seq"][i]), f["icode"][i].strip(),
-                mapped_names[i], [], None, [], None, bool(is_std[i]),
-            )
-            res._atom_idx = []  # type: ignore[attr-defined]
-            res_key_to_obj[key] = res
-            chains[chain_c].residues.append(res)
-            if res.is_standard_aa:
-                std_res_counter += 1
-                res.std_index = std_res_counter
-        an = f["atom_name"][i]
-        if an in res.atom_names:
-            continue  # duplicate atom (altloc remnants)
-        res.atom_names.append(an)
-        res.elements.append(element[i])
-        res._atom_idx.append(int(i))  # type: ignore[attr-defined]
-        if res.is_standard_aa:
-            flat_idx.append(int(i))
-            flat_ri.append(std_res_counter)
+    kept = np.flatnonzero(keep)
+    # a residue keeps the first atom of each name (altloc remnants dropped)
+    pair_first, _ = distinct_rows(res_of[kept], name_of[kept])
+    kept = kept[np.sort(pair_first)]
+    # residues in the order they are first met, each described by its first atom
+    first_pos, local = distinct_rows(res_of[kept])
+    order = np.argsort(first_pos)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    local = rank[local]  # each kept atom's residue, numbered in order of meeting
+    head = kept[first_pos[order]]
+    n_res = len(head)
+    # chains in the order they are first met; residues grouped by chain
+    chain_first, chain_of = distinct_rows(chain_cp[head])
+    chain_rank = np.empty_like(chain_first)
+    chain_rank[np.argsort(chain_first)] = np.arange(len(chain_first))
+    chain_of = chain_rank[chain_of]
+    grouped = np.lexsort((np.arange(n_res), chain_of))
+    res_std = is_std[head]
+    std_index = np.full(n_res, -1, np.int64)
+    std_rows = grouped[res_std[grouped]]
+    std_index[std_rows] = np.arange(len(std_rows))
 
-    # materialize per-residue arrays as views into the scan output
-    for res in res_key_to_obj.values():
-        ai = np.asarray(res._atom_idx, int)  # type: ignore[attr-defined]
-        res.coords = f["coords"][ai]
-        res.bfactors = f["bfactors"][ai]
-        del res._atom_idx  # type: ignore[attr-defined]
+    # each residue's atoms as slices of arrays gathered once
+    by_res = kept[np.argsort(local, kind="stable")]
+    ends = np.cumsum(np.bincount(local, minlength=n_res)).tolist()
+    coords, bfactors = f["coords"][by_res], f["bfactors"][by_res]
+    atom_names = _objects(f["atom_name"][name_first])[name_of[by_res]].tolist()
+    elements = _objects(el_table)[el_of[by_res]].tolist()
 
-    # std_index was assigned in file-encounter order, but `.residues` is
-    # chain-grouped: for interleaved chain records (A1, B1, A2) the orders
-    # differ, so renumber both to the residues-list order.
-    old_to_new = np.full(std_res_counter + 1, -1, np.int64)
-    new_i = -1
-    for ch in chains.values():
-        for res in ch.residues:
-            if res.is_standard_aa and res.std_index is not None:
-                new_i += 1
-                old_to_new[res.std_index] = new_i
-                res.std_index = new_i
-    if flat_ri:
-        flat_ri = old_to_new[np.asarray(flat_ri, np.int64)].tolist()
+    chains = [Chain(c, []) for c in _objects(f["chain_id"][head[np.sort(chain_first)]]).tolist()]
+    for j, (chain_i, chain_c, seq, icode, res_name, std, std_i) in enumerate(zip(
+            chain_of.tolist(), _objects(f["chain_id"][head]).tolist(),
+            f["res_seq"][head].tolist(), f["icode"][head].tolist(),
+            _objects(mapped_names[head]).tolist(), res_std.tolist(), std_index.tolist())):
+        s, e = (ends[j - 1] if j else 0), ends[j]
+        chains[chain_i].residues.append(Residue(
+            chain_c, seq, icode.strip(), res_name, atom_names[s:e], coords[s:e],
+            elements[s:e], bfactors[s:e], std, std_i if std else None))
 
-    fi = np.asarray(flat_idx, int)
+    # the flat arrays: standard residues' atoms in file order, each numbered
+    # by the standard residue met last when it was read: its own, unless its
+    # residue's records are split apart by another's (A1, A2, A1)
+    met = np.zeros(len(kept), bool)
+    met[first_pos] = True
+    last_met = np.cumsum(met & res_std[local]) - 1
+    flat = res_std[local]
+    fi = kept[flat]
     return Structure(
         name=name,
-        chains=list(chains.values()),
+        chains=chains,
         coords=f["coords"][fi].reshape(-1, 3),
         elements=element[fi],
         atom_names=f["atom_name"][fi],
-        res_index=np.asarray(flat_ri, np.int32),
+        res_index=std_index[np.flatnonzero(res_std)][last_met[flat]].astype(np.int32),
         bfactors=f["bfactors"][fi],
     )
 
 
-def load_pdb(
-    path: t.Union[str, Path],
-    all_states: bool = False,
-    keep_hetatms: bool = False,
-) -> t.Union[Structure, list[Structure]]:
-    """Load a PDB file (optionally .gz): its first state, or a list of every
-    state with ``all_states=True``."""
+def read_pdb_file(path: t.Union[str, Path]) -> tuple[str, str]:
+    """The text of a PDB file (optionally .gz) and its structure name: the
+    file name without .gz/.pdb1/.pdb/.ent."""
     path = Path(path)
     if path.suffix == ".gz":
         with gzip.open(str(path), "rb") as f:
@@ -383,6 +438,17 @@ def load_pdb(
     for suffix in (".gz", ".pdb1", ".pdb", ".ent"):
         if name.endswith(suffix):
             name = name[: -len(suffix)]
+    return text, name
+
+
+def load_pdb(
+    path: t.Union[str, Path],
+    all_states: bool = False,
+    keep_hetatms: bool = False,
+) -> t.Union[Structure, list[Structure]]:
+    """Load a PDB file (optionally .gz): its first state, or a list of every
+    state with ``all_states=True``."""
+    text, name = read_pdb_file(path)
     structures = parse_pdb_string(
         text, name=name, all_states=all_states, keep_hetatms=keep_hetatms
     )

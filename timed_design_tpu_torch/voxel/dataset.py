@@ -35,6 +35,7 @@ from ..io.datasetmap import DatasetMap, _residue_sort_key
 from ..io.h5frames import bf16_bits
 from ..ops.matmul_voxelize import voxelize_matmul
 from ..structure import Structure, load_pdb
+from ..structure.pdb import read_pdb_file, scan_pdb_text, structures_from_fields
 from ..utils import timing
 from ..utils.timing import PhaseTimer
 from .codec import Codec
@@ -327,15 +328,19 @@ def make_frame_set(
 
     Spans (``utils/timing.py``): ``frame_set`` around the call,
     ``frame_set.parse`` and ``frame_set.frame_atoms`` for each file,
-    ``frame_set.index`` around the ``FrameSet``'s tables."""
+    ``frame_set.index`` around the ``FrameSet``'s tables. Counters: the
+    atom records scanned (``frame_set.atoms``) and the files the Python
+    scanner read for want of the C++ one (``frame_set.python_scans``)."""
     if isinstance(codec, str):
         codec = Codec.from_string(codec)
     structures: list[tuple[str, FrameAtoms]] = []
     for path in structure_paths:
         with timing.span("frame_set.parse"):
-            states = load_pdb(Path(path), all_states=voxelise_all_states)
-        if not isinstance(states, list):
-            states = [states]
+            text, name = read_pdb_file(path)
+            fields, native = scan_pdb_text(text)
+            states = structures_from_fields(fields, name, all_states=voxelise_all_states)
+        timing.count("frame_set.atoms", len(fields["coords"]))
+        timing.count("frame_set.python_scans", int(not native))
         with timing.span("frame_set.frame_atoms"):
             fas = [structure_to_frame_atoms(s, codec) for s in states]
             if len(fas) > 1:

@@ -32,6 +32,7 @@ import numpy as np
 
 from ..constants import AA3_TO_AA1, VDW_RADII
 from ..structure import Structure, convert_seq_to_property
+from ..structure.pdb import distinct_rows
 from .codec import Codec
 
 # Imputed CB offset in frame coordinates (reference utils.py:247).
@@ -117,55 +118,42 @@ def structure_to_frame_atoms(
     else:
         prop_values = np.zeros(len(std), np.float32)
 
-    xyz, chan, sigma, prop = [], [], [], []
     if atom_filter == "all":
-        # full-atom path from the flat struct-of-arrays (side chains kept)
-        for j in range(structure.coords.shape[0]):
-            el = str(structure.elements[j])
-            if el == "H":
-                continue
-            ch = codec.atom_channel(str(structure.atom_names[j]), el)
-            if ch < 0:
-                continue
-            xyz.append(structure.coords[j])
-            chan.append(ch)
-            sigma.append(VDW_RADII.get(el, VDW_RADII["C"]))
-            prop.append(prop_values[structure.res_index[j]])
+        # every non-H atom of the flat struct-of-arrays (side chains kept);
+        # channel and radius a distinct (name, element) at a time
+        names, elements = structure.atom_names, structure.elements
+        first, pair_of = distinct_rows(names, elements)
+        pairs = [(str(names[i]), str(elements[i])) for i in first]
+        channel = np.array([codec.atom_channel(n, e) for n, e in pairs], np.int32)[pair_of]
+        sigma = np.array([VDW_RADII.get(e, VDW_RADII["C"]) for _, e in pairs],
+                         np.float32)[pair_of]
+        take = (elements != "H") & (channel >= 0)
+        xyz, chan, sigma = structure.coords[take], channel[take], sigma[take]
+        prop = prop_values[structure.res_index[take]]
     elif atom_filter == "ca":
-        for i in range(len(std)):
-            p = bb["CA"][i]
-            if not np.isfinite(p).all():
-                continue
-            ch = codec.atom_channel("CA", "C")
-            if ch < 0:
-                continue
-            xyz.append(p)
-            chan.append(ch)
-            sigma.append(VDW_RADII["C"])
-            prop.append(prop_values[i])
+        ch = codec.atom_channel("CA", "C")
+        take = np.isfinite(bb["CA"]).all(-1) & (ch >= 0)
+        xyz, prop = bb["CA"][take], prop_values[take]
+        chan = np.full(len(xyz), ch, np.int32)
+        sigma = np.full(len(xyz), VDW_RADII["C"], np.float32)
     elif atom_filter == "backbone":
-        for i, res in enumerate(std):
-            for name in BACKBONE_FILTER:
-                p = bb[name][i]
-                if not np.isfinite(p).all():
-                    continue
-                element = name[0]  # N->N, CA->C, C->C, O->O
-                ch = codec.atom_channel(name, element)
-                if ch < 0:
-                    continue
-                xyz.append(p)
-                chan.append(ch)
-                sigma.append(VDW_RADII[element])
-                prop.append(prop_values[i])
-            if encode_cb and valid[i]:
-                # virtual CB: frame offset mapped back to world coords
-                p = ca[i] + M[i].T @ CB_FRAME_OFFSET
-                ch = codec.atom_channel("CB", "C")
-                if ch >= 0:
-                    xyz.append(p)
-                    chan.append(ch)
-                    sigma.append(VDW_RADII["C"])
-                    prop.append(prop_values[i])
+        # one (R, 5) block a residue: N, CA, C, O (element = first letter),
+        # then the virtual CB, its frame offset mapped back to world coords
+        names = BACKBONE_FILTER + ("CB",)
+        elements = [name[0] for name in BACKBONE_FILTER] + ["C"]
+        block = np.empty((len(std), 5, 3), np.float32)
+        for k, name in enumerate(BACKBONE_FILTER):
+            block[:, k] = bb[name]
+        block[:, 4] = ca + np.matmul(M.transpose(0, 2, 1), CB_FRAME_OFFSET)
+        channels = np.array([codec.atom_channel(n, e) for n, e in zip(names, elements)], np.int32)
+        take = np.concatenate(
+            [np.isfinite(block[:, :4]).all(-1), (valid & encode_cb)[:, None]], axis=1)
+        take &= channels >= 0
+        xyz = block[take]
+        chan = np.broadcast_to(channels, take.shape)[take]
+        sigma = np.broadcast_to(
+            np.array([VDW_RADII[e] for e in elements], np.float32), take.shape)[take]
+        prop = np.broadcast_to(prop_values[:, None], take.shape)[take]
     else:
         raise ValueError(f"atom_filter {atom_filter!r} not in (backbone, ca, all)")
 
@@ -198,10 +186,10 @@ def structure_to_frame_atoms(
         valid = valid[keep]
 
     return FrameAtoms(
-        atoms_xyz=np.asarray(xyz, np.float32).reshape(-1, 3),
-        atom_channel=np.asarray(chan, np.int32),
-        atom_sigma=np.asarray(sigma, np.float32),
-        atom_prop=np.asarray(prop, np.float32),
+        atoms_xyz=xyz,
+        atom_channel=chan,
+        atom_sigma=sigma,
+        atom_prop=prop,
         ca=ca,
         rot=M,
         valid=valid,
