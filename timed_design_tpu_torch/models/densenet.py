@@ -8,6 +8,12 @@ pooling] between blocks (21^3 -> 10^3 -> 5^3); then BN, ReLU, global average
 pooling and the Dense head. BatchNorm (eps 1e-3, the Keras default), ReLU,
 the pooling of a transition and the head run in float32; the convolutions
 in the compute dtype.
+
+While the span recorder (``utils/timing.py``) is on, a forward records the
+device spans ``densenet.block`` (id: the block's index), ``densenet.transition``
+(id: the transition's index) and ``densenet.head`` (the last BN-ReLU, the
+pooling and the Dense head), and adds the bytes each concatenation writes
+to the counter ``densenet.concat_bytes``.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import timing
 from .layers import BatchNorm3d, at_least_float32, cast_conv, cast_linear, global_average_pool_3d
 
 
@@ -39,7 +46,10 @@ class DenseLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = cast_conv(self.conv0, _bn_relu(self.bn0, x))
         h = cast_conv(self.conv1, _bn_relu(self.bn1, h), padding=1)
-        return torch.cat([x, h], dim=1)
+        out = torch.cat([x, h], dim=1)
+        if timing.is_recording():
+            timing.count("densenet.concat_bytes", out.numel() * out.element_size())
+        return out
 
 
 class Transition(nn.Module):
@@ -92,12 +102,15 @@ class DenseNet3D(nn.Module):
         x = cast_conv(self.stem, x, padding=1)
         layers = iter(self.layers)
         for bi, n_layers in enumerate(self.block_layers):
-            for _ in range(n_layers):
-                x = next(layers)(x)
+            with timing.device_span("densenet.block", bi, device=x.device):
+                for _ in range(n_layers):
+                    x = next(layers)(x)
             if bi < len(self.transitions):
-                x = self.transitions[bi](x)
-        x = global_average_pool_3d(F.relu(self.bn(at_least_float32(x))))
-        x = cast_linear(self.head, x)
+                with timing.device_span("densenet.transition", bi, device=x.device):
+                    x = self.transitions[bi](x)
+        with timing.device_span("densenet.head", device=x.device):
+            x = global_average_pool_3d(F.relu(self.bn(at_least_float32(x))))
+            x = cast_linear(self.head, x)
         return x if logits else torch.softmax(x, dim=-1)
 
 
