@@ -719,6 +719,7 @@ def check_families() -> dict:
         sample_inverse_cdf.launches = sample_inverse_cdf_batched.launches = 0
         for name in FAMILIES:
             lat = []
+            reset_dense_block_launches()
             for _ in range(2):
                 status, body, dt = post(url, {"pdb": pdb, "n_samples": 100, "temperature": 0.2,
                                               "seed": 7, "model": name})
@@ -733,6 +734,7 @@ def check_families() -> dict:
                     assert np.allclose(got, sequence_metrics(smp["sequence"]), rtol=1e-4, atol=0.05)
                 lat.append(dt)
             out[name]["design_1ubq_n100_s"] = lat
+            out[name]["dense_block_launches"] = dense_block_forwards(name, "2 /design requests")
             log(f"serving {name} (bf16, batch 512): /design 1ubq n=100 latency "
                 + ", ".join(f"{x * 1e3:.1f} ms" for x in lat) + f" ({stages(body['timings_s'])})")
         launches = sample_inverse_cdf.launches
@@ -745,7 +747,205 @@ def check_families() -> dict:
             d.close()
     log(f"serving the families: launches of sample_inverse_cdf = {launches}")
     assert launches == 2 * len(FAMILIES), "a family's /design did not go through the kernel"
-    return {"launches": launches, "per_family": out}
+    return {"launches": launches, "per_family": out,
+            "dense_block_launches": {k: out[k]["dense_block_launches"] for k in FAMILIES}}
+
+
+DENSE_BATCH = 512
+DENSE_KERNELS = ("dense_bn_relu", "dense_bias_store", "dense_pool_store")
+
+
+def reset_dense_block_launches() -> None:
+    from timed_design_tpu_torch.ops import dense_block as db
+
+    db.bn_relu.launches = db.bias_store.launches = db.pool_bias_store.launches = 0
+
+
+def dense_block_forwards(model: str, what: str) -> dict:
+    """The dense-block kernels' launches since ``reset_dense_block_launches``
+    for ``what`` with registry ``model``: a whole number of evaluation
+    forwards of its block buffers (at least one for DenseNet and DenseCPD,
+    none for another family)."""
+    from timed_design_tpu_torch.models import MODEL_REGISTRY
+    from timed_design_tpu_torch.ops import dense_block as db
+
+    got = [db.bn_relu.launches, db.bias_store.launches, db.pool_bias_store.launches]
+    m = MODEL_REGISTRY[model].build()
+    if hasattr(m, "block_layers"):
+        n, t = sum(m.block_layers), len(m.transitions)
+        per = [2 * n + t + 1, n + 1, t]
+    else:
+        per = [0, 0, 0]
+    forwards = got[0] // per[0] if per[0] else 0
+    log(f"{what} with {model}: launches of {', '.join(DENSE_KERNELS)} = {got}; "
+        f"{forwards} forwards of {per}")
+    assert got == [forwards * k for k in per] and (forwards > 0) == (per[0] > 0), (got, per)
+    return {"launches": got, "forwards": forwards, "per_forward": per}
+
+
+def check_dense_block() -> dict:
+    """The dense-block kernels (``csrc/dense_block.cu``) at DenseCPD's
+    bfloat16 shapes, batch 512: each held bit for bit to its plain version
+    on the card, then timed (``graph_ms``) beside its bound (its bytes, each
+    read once and written once, over HBM), the plain version and, as
+    context, the PyTorch sequence the concatenating path ran for the same
+    step. Then one DenseCPD forward of 512 frames both ways (block buffers;
+    ``_logits_concatenated``, the path of training and autograd), A B B A:
+    device time, the spans, and the kernels by name under torch.profiler;
+    no kernel of the buffered path may match ``tdbench/densenet.py::CONV``.
+    The two paths' logits are compared in bfloat16 and under ``--quantize
+    int8`` (needs ``conv3d_int8`` built)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tdbench.densenet import CONV
+    from timed_design_tpu_torch.models import MODEL_REGISTRY, quantized_convs
+    from timed_design_tpu_torch.ops import dense_block as db
+    from timed_design_tpu_torch.utils import timing
+
+    dev, bf16, B = torch.device("cuda"), torch.bfloat16, DENSE_BATCH
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def bn(c):
+        m = torch.nn.BatchNorm3d(c, eps=1e-3).to(dev).eval()
+        with torch.no_grad():
+            m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+            m.running_var.uniform_(0.2, 3.0, generator=gen)
+            m.weight.uniform_(0.5, 1.5, generator=gen)
+            m.bias.uniform_(-0.3, 0.3, generator=gen)
+        return m
+
+    def stats(m):
+        return m.running_mean, m.running_var, m.weight, m.bias, m.eps
+
+    rows0 = B * 21 ** 3
+    buf0 = randn(B, 21, 21, 21, 128)
+    cases = []
+    for C in (32, 112):  # block 0's first and last layer's prefix
+        m = bn(C)
+        cat = buf0[..., :C].contiguous()  # the concatenated tensor the old path held
+        cases.append((f"bn_relu {C} of 128 @21^3", rows0 * C * 4,
+                      lambda C=C, m=m: db.bn_relu(buf0, C, *stats(m)),
+                      lambda C=C, m=m: db.bn_relu_plain(buf0, C, *stats(m)),
+                      lambda m=m, cat=cat: F.relu(m(cat.permute(0, 4, 1, 2, 3).float())).to(bf16)))
+    m64, h64, b64 = bn(64), randn(B, 21, 21, 21, 64), randn(64, dtype=torch.float32)
+    cases.append(("bn_relu + conv bias 64 @21^3", rows0 * 64 * 4,
+                  lambda: db.bn_relu(h64, 64, *stats(m64), b64),
+                  lambda: db.bn_relu_plain(h64, 64, *stats(m64), b64),
+                  lambda: F.relu(m64((h64.permute(0, 4, 1, 2, 3) + b64.to(bf16).view(-1, 1, 1, 1))
+                                     .float())).to(bf16)))
+    h16, b16 = randn(B, 21, 21, 21, 16), randn(16, dtype=torch.float32)
+    prefix = buf0[..., :112].contiguous()
+    cases.append(("bias_store 16 at 112 of 128 @21^3", rows0 * 16 * 4,
+                  lambda: db.bias_store(h16, b16, buf0, 112),
+                  lambda: db.bias_store_plain(h16, b16, buf0, 112),
+                  lambda: torch.cat([prefix.permute(0, 4, 1, 2, 3),
+                                     h16.permute(0, 4, 1, 2, 3) + b16.to(bf16).view(-1, 1, 1, 1)],
+                                    dim=1)))
+    buf1 = randn(B, 10, 10, 10, 160)
+    # the pool reads the 20^3 voxels its cells cover (21 floors to 10)
+    cases.append(("pool_store 64 @21^3 -> 10^3 of 160", B * (20 ** 3 + 10 ** 3) * 64 * 2,
+                  lambda: db.pool_bias_store(h64, b64, buf1),
+                  lambda: db.pool_bias_store_plain(h64, b64, buf1),
+                  lambda: F.avg_pool3d((h64.permute(0, 4, 1, 2, 3)
+                                        + b64.to(bf16).view(-1, 1, 1, 1)).float(), 2, 2).to(bf16)))
+    buf2, m176 = randn(B, 5, 5, 5, 176), bn(176)
+    cases.append(("head bn_relu 176 @5^3 -> float32", B * 125 * 176 * 6,
+                  lambda: db.bn_relu(buf2, 176, *stats(m176), out_dtype=torch.float32),
+                  lambda: db.bn_relu_plain(buf2, 176, *stats(m176), out_dtype=torch.float32),
+                  lambda: F.relu(m176(buf2.permute(0, 4, 1, 2, 3).float()))))
+    out = {"card": gpu_name_and_power(), "kernels": []}
+    with torch.inference_mode():
+        for name, moved, kernel, plain, unfused in cases:
+            before = (buf0.clone(), buf1.clone())
+            got = kernel()
+            got = got if got is not None else (buf0.clone(), buf1.clone())
+            buf0.copy_(before[0]), buf1.copy_(before[1])
+            want = plain()
+            want = want if want is not None else (buf0.clone(), buf1.clone())
+            torch.cuda.synchronize()
+            same = (torch.equal(got, want) if isinstance(got, torch.Tensor)
+                    else all(torch.equal(a, b) for a, b in zip(got, want)))
+            assert same, f"dense_block {name}: the kernel differs from its plain version"
+            row = {"name": name, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                   "kernel_ms": graph_ms(kernel), "plain_ms": graph_ms(plain, reps=5),
+                   "unfused_ms": graph_ms(unfused, reps=5)}
+            row["share"] = row["bound_ms"] / row["kernel_ms"]
+            out["kernels"].append(row)
+            log(f"dense_block {name}: kernel {row['kernel_ms']:.4f} ms (bound "
+                f"{row['bound_ms']:.4f}, share {row['share']:.3f}); plain "
+                f"{row['plain_ms']:.4f} ms; unfused PyTorch sequence (context) "
+                f"{row['unfused_ms']:.4f} ms")
+    del buf0, buf1, buf2, h64, h16, prefix
+    torch.cuda.empty_cache()
+
+    module = MODEL_REGISTRY["DenseCPD"].build(compute_dtype=bf16).to(dev).eval()
+    x = torch.rand(B, 21, 21, 21, 5, generator=gen, device=dev)
+    paths = {"buffered": lambda: module(x, logits=True),
+             "concatenated": lambda: module._logits_concatenated(
+                 x.to(bf16).permute(0, 4, 1, 2, 3))}
+    ms = {k: [] for k in paths}
+    with torch.inference_mode():
+        want = paths["concatenated"]().float()
+        got = paths["buffered"]().float()
+        gap = float((got - want).abs().max() / want.abs().max())
+        log(f"dense_block: DenseCPD bf16 logits, buffered against concatenated, max gap "
+            f"{gap:.3g} of the largest")
+        assert gap <= 2.0 ** -7
+        # int8: the int8 kernel's convolutions without their bias, which the
+        # dense-block passes add, against the concatenating path's biased ones
+        with quantized_convs("int8"):
+            want8 = paths["concatenated"]().float()
+            got8 = paths["buffered"]().float()
+        out["int8_gap"] = float((got8 - want8).abs().max() / want8.abs().max())
+        log(f"dense_block: DenseCPD int8 logits, buffered against concatenated, max gap "
+            f"{out['int8_gap']:.3g} of the largest")
+        assert out["int8_gap"] <= 2.0 ** -4
+        for name in ("buffered", "concatenated", "concatenated", "buffered"):
+            for _ in range(3):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                paths[name]()
+                end.record()
+                end.synchronize()
+                ms[name].append(start.elapsed_time(end))
+        out["forward_ms"] = {k: float(np.median(v)) for k, v in ms.items()}
+        log("dense_block: DenseCPD forward of 512 bf16 frames (ms, median of 6): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["forward_ms"].items()))
+        counts = (db.bn_relu.launches, db.bias_store.launches, db.pool_bias_store.launches)
+        with timing.recording() as rec:
+            paths["buffered"]()
+        out["launches_a_forward"] = [a - b for a, b in zip(
+            (db.bn_relu.launches, db.bias_store.launches, db.pool_bias_store.launches), counts)]
+        assert out["launches_a_forward"] == [39, 19, 2], out["launches_a_forward"]
+        spans: dict = {}
+        for name, id_, t in rec.device_spans:
+            spans[f"{name}{'' if id_ is None else id_}"] = t
+        out["spans_ms"], out["counters"] = spans, dict(rec.counters)
+        log("dense_block: buffered spans (ms) "
+            + ", ".join(f"{k} {v:.2f}" for k, v in spans.items()) + f"; counters {rec.counters}")
+        for name, fn in paths.items():
+            events = device_events(fn)
+            by_name: dict = {}
+            for e in events:
+                by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+            total = sum(by_name.values()) / 1e3
+            log(f"dense_block: {name} forward under torch.profiler, device {total:.2f} ms, "
+                f"{len(events)} events")
+            for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+                log(f"dense_block:   {us / 1e3:8.3f} ms  {k[:100]}")
+            out[f"profile_{name}_ms"] = total
+            if name == "buffered":
+                mine = [k for k in by_name if "dense_" in k]
+                assert len(mine) >= 3 and not any(CONV.search(k) for k in mine), mine
+                out["dense_kernels_ms"] = sum(by_name[k] for k in mine) / 1e3
+                out["kernel_names"] = sorted({k.split("<")[0] for k in mine})
+    log(f"dense_block: {json.dumps(out)}")
+    return out
 
 
 def check_td_sample() -> dict:
@@ -986,7 +1186,10 @@ def check_td_predict() -> dict:
     (its files without a probability equal the in-process run's), and
     TIMED_rotamer on 1ubq in float32 on the card against the CPU:
     probabilities within 1e-4, the files without a probability byte-equal.
-    This path reaches no TPU kernel: the sampling kernel's counts stay 0."""
+    Then DenseCPD in bfloat16 at batch 512 (after a warm-up run): its
+    BN-ReLUs all through the block buffers, the dense-block kernels
+    launched a whole number of forwards, at least one a batch. This path
+    reaches no TPU kernel: the sampling kernel's counts stay 0."""
     import os
     import tempfile
 
@@ -1038,6 +1241,26 @@ def check_td_predict() -> dict:
                 f"({matrix}, {bf.shape[0]} residues, max |dp| "
                 f"{per_model[model]['bf16_vs_f32_max_abs_dp']:.3g}); warm bfloat16 predict "
                 f"{runs['bf16']['predict_frames_per_s']:.0f} frames/s; {gpu_name_and_power()}")
+
+        # DenseCPD, bf16, batch 512: the block buffers and their kernels on
+        # td-predict's main path, counted around this run alone
+        from timed_design_tpu_torch.utils import timing
+
+        run("DenseCPD", "bfloat16", work / "DenseCPD_bf16_first")  # cuDNN's warm-up
+        reset_dense_block_launches()
+        with timing.recording() as rec:
+            result, n = run("DenseCPD", "bfloat16", work / "DenseCPD_bf16")
+        dense = dense_block_forwards("DenseCPD", f"td-predict --voxelize, {n} frames, batch 512")
+        bn_relu_paths = {k: rec.counters.get(f"densenet.bn_relu.{k}", 0)
+                         for k in ("fused", "plain")}
+        assert dense["forwards"] >= -(-n // 512), dense
+        assert bn_relu_paths == {"fused": dense["launches"][0], "plain": 0}, bn_relu_paths
+        per_model["DenseCPD"] = {"timings_s": result.timings, "frames": n,
+                                 "predict_frames_per_s": n / result.timings["predict"],
+                                 "dense_block_launches": dense, "bn_relu": bn_relu_paths}
+        log(f"td-predict DenseCPD bfloat16, {n} frames, batch 512: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in result.timings.items())
+            + f"; predict {n / result.timings['predict']:.0f} frames/s; BN-ReLUs {bn_relu_paths}")
 
         model = models[-1]
         t0 = time.perf_counter()
@@ -4942,7 +5165,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, GPU: {gpu_name_and_power()}")
     from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
 
-    build_kernels(["sample_inverse_cdf", "conv3d_int8"])
+    build_kernels(["sample_inverse_cdf", "conv3d_int8", "dense_block"])
     conv3d_int8.launches = 0
     kernel = check_sampling_kernel()
     batched = check_batched_kernel()
@@ -4955,6 +5178,7 @@ def main() -> int:
     properties = check_properties()
     train = check_train()
     assert conv3d_int8.launches == 0, "an unquantized path launched the int8 kernel"
+    dense = check_dense_block()  # its int8 forward launches the int8 kernel
     quantize = check_quantize()
     flat_bf16 = ROOT / f".chip_smoke_keras_flat_bf16_{os.getpid()}.hdf5"
     hdf5 = check_hdf5(keep_flat_bf16=flat_bf16)
@@ -5029,6 +5253,20 @@ def main() -> int:
         "shapes_equal_to_plain": quantize["kernel"]["shapes_checked"],
         "per_shape": quantize["kernel"]["per_shape"],
         "forward_split": quantize["forward_split"],
+    }, {
+        "name": "dense_block",
+        "route": "cuda",
+        "source": "timed_design_tpu_torch/csrc/dense_block.cu",
+        # no TPU kernel: the JAX package leaves these passes to XLA
+        "replaces": None,
+        "launches_by_path": {
+            "td_predict_densecpd_bf16": td_predict["per_model"]["DenseCPD"][
+                "dense_block_launches"],
+            "serve_design": families["dense_block_launches"],
+            "module_forward": dense["launches_a_forward"]},
+        "equal_to_plain": True,
+        "per_shape": dense["kernels"],
+        "forward_ms": dense["forward_ms"],
     }]}), flush=True)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(gpu_name_and_power(), flush=True)

@@ -22,6 +22,8 @@ ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 SMALL = {"growth_rate": 4, "block_layers": (2, 2, 2), "init_features": 8}
 ZOO = {"growth_rate": 16, "block_layers": (6, 6, 6), "init_features": 32}
+# registry DenseNet: growth 12 gives rows of 36, 60, ... channels
+DENSENET = {"growth_rate": 12, "block_layers": (4, 4, 4), "init_features": 24}
 SEED = 2 ** 35 + 21
 
 
@@ -59,11 +61,12 @@ def calibrated(widths: dict, residues: int, dtype=torch.float32):
     return module.eval(), {k: v for k, v in weights.items() if v.is_floating_point()}, frames
 
 
-@pytest.mark.parametrize("widths,residues,n", [(SMALL, 40, 4), (ZOO, 8, 2)],
-                         ids=["small", "zoo"])
+@pytest.mark.parametrize("widths,residues,n", [(SMALL, 40, 4), (ZOO, 8, 2), (DENSENET, 8, 2)],
+                         ids=["small", "zoo", "densenet"])
 def test_float32_forward_equals_the_reference(widths, residues, n):
     """Float32 on both sides, the same operations: 1e-5 holds the
-    probabilities with room (1.8e-7 seen at both sizes)."""
+    probabilities with room (1.8e-7 seen at both sizes). Under ``no_grad``
+    the evaluation forward goes through the block buffers."""
     from tdbench.reference import densenet as ref
 
     module, weights, frames = calibrated(widths, residues)
@@ -102,11 +105,14 @@ def test_calibration_sets_each_batchnorm_to_its_own_input():
         lambda m, args, name=name: seen.__setitem__(name, args[0].detach()))
         for name, m in module.named_modules() if isinstance(m, torch.nn.BatchNorm3d)]
     try:
-        with torch.no_grad():
-            logits = module(frames, logits=True)
+        # with autograd on the forward calls each BatchNorm module; the
+        # block buffers' path reads their statistics as kernel parameters
+        logits = module(frames, logits=True).detach()
     finally:
         for h in hooks:
             h.remove()
+    with torch.no_grad():
+        assert torch.allclose(module(frames, logits=True), logits, atol=1e-5)
     assert len(seen) == 2 * 6 + 2 + 1
     for name, x in seen.items():
         bn = module.get_submodule(name)
@@ -149,14 +155,31 @@ def test_concat_bytes_are_counted_while_recording_only(monkeypatch):
     monkeypatch.undo()
     with timing.recording() as rec, torch.no_grad():
         module(x)
+    # the evaluation forward stores each layer's new channels into its
+    # block's buffer: the bytes of that slice alone
+    want = sum(3 * SMALL["growth_rate"] * n * edge ** 3 * 4  # float32 values
+               for n, edge in zip(SMALL["block_layers"], (21, 10, 5)))
+    assert rec.counters == {"densenet.concat_bytes": want, "densenet.bn_relu.fused": 15}
+    assert rec.device_spans == []  # device spans are the card's
+
+
+@pytest.mark.parametrize("mode", ["train", "grad"])
+def test_training_and_autograd_concatenate_as_before(mode):
+    """In training mode, or in evaluation with autograd on, every dense
+    layer writes its whole concatenation and every BatchNorm-ReLU runs as
+    modules: no block buffer, no fused pass."""
+    module, _, frames = calibrated(SMALL, 40)
+    module.train(mode == "train")
+    with timing.recording() as rec:
+        module(frames[:3])
+    module.eval()
     c, edge, want = SMALL["init_features"], 21, 0
     for b, n in enumerate(SMALL["block_layers"]):
         for _ in range(n):
             c += SMALL["growth_rate"]
             want += 3 * c * edge ** 3 * 4  # float32 values
         c, edge = c // 2, edge // 2
-    assert rec.counters == {"densenet.concat_bytes": want}
-    assert rec.device_spans == []  # device spans are the card's
+    assert rec.counters == {"densenet.concat_bytes": want, "densenet.bn_relu.plain": 15}
 
 
 def small_cell():
@@ -199,6 +222,7 @@ def test_predict_passes_densenet_run(small_registry, mode):
     names = {entry["name"] for entry, _ in cell.per_layer}
     assert {"densecpd.block_device_ms", "densecpd.transition_device_ms",
             "densecpd.concat_mb_per_frame", "densecpd.forward_roofline",
+            "densecpd.fused_bn_relu_share",
             "conv3d_roofline.predict_densecpd", "mfu.predict", "device_idle.predict",
             "predict.engine_frames_per_s", "predict.forward_device_ms"} <= names
     for name, metric in result["metrics"].items():
@@ -224,7 +248,9 @@ def test_readers_on_a_hand_made_record():
               ("densenet.head", None, 0.25), ("forward", 0, 20.0)]
     record = {"kind": "predict", "batch": 512, "device_frames": 1024, "config": cfg,
               "spans": [("forward", 0.0, 1.0, "MainThread", 0)], "device_spans": spans,
-              "counters": {"densenet.concat_bytes": 1024 * 11_423_616}, "idle_by_span": {},
+              "counters": {"densenet.concat_bytes": 1024 * 11_423_616,
+                           "densenet.bn_relu.fused": 3 * 39, "densenet.bn_relu.plain": 39},
+              "idle_by_span": {},
               "kernels": {"sm90_xmma_fprop_implicit_gemm_bf16": 0.5, "relu_kernel": 0.2,
                           "nvjet_tst_64x384_64x3_1x2_h_ssched_bz_coopB_TNT": 0.125,
                           "sm80_xmma_gemm_f32f32_f32f32_f32_nt_n_cublas": 0.25}}
@@ -235,6 +261,10 @@ def test_readers_on_a_hand_made_record():
     assert read("densecpd.block_device_ms") == 11.0 + 4.0 + 1.0
     assert read("densecpd.transition_device_ms") == 2.75
     assert math.isclose(read("densecpd.concat_mb_per_frame"), 11.423616)
+    assert read("densecpd.fused_bn_relu_share") == 75.0
+    # a program without the BatchNorm-ReLU counters
+    assert read("densecpd.fused_bn_relu_share",
+                {**record, "counters": {"densenet.concat_bytes": 1}}) is None
     assert math.isclose(read("densecpd.forward_roofline"),
                         100 * densenet.forward_least_s(cfg, 512) / 0.020)
     assert math.isclose(read("conv3d_roofline.predict_densecpd"),
@@ -243,7 +273,7 @@ def test_readers_on_a_hand_made_record():
              "spans": [], "device_spans": [], "counters": {}, "idle_by_span": {}}
     for name in ("densecpd.block_device_ms", "densecpd.transition_device_ms",
                  "densecpd.concat_mb_per_frame", "densecpd.forward_roofline",
-                 "conv3d_roofline.predict_densecpd"):
+                 "conv3d_roofline.predict_densecpd", "densecpd.fused_bn_relu_share"):
         assert read(name, {}) is None and read(name, empty) is None, name
 
 
@@ -272,7 +302,8 @@ def test_forward_records_its_device_spans_inside_forward(cuda_device):
                    ("forward", 0)]
     ms = [m for *_, m in rec.device_spans]
     assert all(m > 0 for m in ms) and sum(ms[:-1]) <= ms[-1]
-    assert rec.counters["densenet.concat_bytes"] == 16 * 2 * (
-        9261 * sum(32 + 16 * k for k in range(1, 7))
-        + 1000 * sum(64 + 16 * k for k in range(1, 7))
-        + 125 * sum(80 + 16 * k for k in range(1, 7)))
+    # under inference_mode each layer stores its 16 new bf16 channels into
+    # its block's buffer, and all 39 BatchNorm-ReLUs take the fused pass
+    assert rec.counters["densenet.concat_bytes"] == 16 * 2 * 6 * 16 * (9261 + 1000 + 125)
+    assert rec.counters["densenet.bn_relu.fused"] == 39
+    assert "densenet.bn_relu.plain" not in rec.counters

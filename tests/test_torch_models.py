@@ -167,7 +167,10 @@ def test_spatial_dropout_drops_whole_channels():
 # Narrow widths of the DenseNet family: two blocks (one transition), and
 # three blocks (two transitions, DenseCPD's depth) as Flax DenseNet3D.
 NARROW = {"DenseNet": {"growth_rate": 4, "block_layers": (2, 2), "init_features": 8},
-          "DenseCPD": {"growth_rate": 4, "block_layers": (2, 1, 2), "init_features": 6}}
+          "DenseCPD": {"growth_rate": 4, "block_layers": (2, 1, 2), "init_features": 6},
+          # registry DenseNet: channel prefixes of 36, 48, ..., rows not 16-byte aligned
+          "DenseNet-registry": {"growth_rate": 12, "block_layers": (4, 4, 4),
+                                "init_features": 24}}
 
 
 def _flax_family(name, seed=0, dtype=None):
@@ -194,11 +197,11 @@ def _port_family(name, variables, dtype=torch.float32):
 
     m = (ProDCoNN(compute_dtype=dtype) if name == "ProDCoNN"
          else DenseNet3D(**NARROW[name], compute_dtype=dtype))
-    m.load_state_dict(MODEL_REGISTRY[name].convert(variables))
+    m.load_state_dict(MODEL_REGISTRY[name.split("-")[0]].convert(variables))
     return m.eval()
 
 
-@pytest.mark.parametrize("name", ["ProDCoNN", "DenseNet", "DenseCPD"])
+@pytest.mark.parametrize("name", ["ProDCoNN", "DenseNet", "DenseCPD", "DenseNet-registry"])
 def test_family_forward_float32_matches_flax(name):
     fm, v, _ = _flax_family(name)
     x = _frames(n=8)

@@ -133,6 +133,19 @@ _WORKER = _HYGIENE + textwrap.dedent('''
             out["sliced"] = {k: list(v.shape) for k, v in m.state_dict().items()}
             save_checkpoint(state, work / f"ckpt_{weighting}.npz",
                             build_kwargs={"filters": (8, 16)})
+    if n_model > 1:
+        from timed_design_tpu_torch.models import DenseNet3D
+        from timed_design_tpu_torch.parallel.tensor_parallel import shard_model_axis
+
+        torch.manual_seed(0)
+        dn = DenseNet3D(growth_rate=4, block_layers=(2, 2), init_features=8).eval()
+        x = torch.from_numpy(inp["predict_x"][:2])
+        with torch.inference_mode():
+            arrays["densenet_whole"] = dn(x, logits=True).numpy()
+        shard_model_axis(dn, mesh)
+        with torch.inference_mode():
+            arrays["densenet_buffered"] = dn(x, logits=True).numpy()
+        arrays["densenet_concatenated"] = dn(x, logits=True).detach().numpy()
     barrier("done")
     np.savez(work / f"rank{rank}.npz", **arrays)
     (work / f"rank{rank}.json").write_text(json.dumps(out))
@@ -663,6 +676,19 @@ def test_two_by_two_equals_two_by_one(two_data, two_by_two, weighting):
         got = _results(two_by_two, rank)[1]
         for k, v in want.items():
             np.testing.assert_array_equal(got[k], v, err_msg=f"rank {rank}: {k}")
+
+
+def test_two_by_two_densenet_buffers_take_the_whole_bias(two_by_two):
+    """DenseNet's evaluation forward through its block buffers, every
+    convolution split over the model axis: each pass after a convolution
+    adds the bias gathered whole, so the logits equal the unsplit module's,
+    and the split module's concatenating path (autograd on), on every rank,
+    within 1e-5."""
+    for rank in range(4):
+        arrays = _results(two_by_two, rank)[1]
+        for path in ("buffered", "concatenated"):
+            np.testing.assert_allclose(arrays[f"densenet_{path}"], arrays["densenet_whole"],
+                                       atol=1e-5)
 
 
 def test_two_by_two_checkpoint_is_the_whole_tree(inputs, two_by_two):

@@ -190,13 +190,24 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     return quantized_conv3d(mode, x, w, b, padding, stride, dilation, name)
 
 
-def cast_conv(conv: nn.Conv3d, x: torch.Tensor, padding: int = 0) -> torch.Tensor:
+def cast_conv(conv: nn.Conv3d, x: torch.Tensor, padding: int = 0,
+              bias: bool = True) -> torch.Tensor:
     """``conv`` applied in ``x``'s dtype, its float32 parameters cast; on
-    its slice, the output gathered, where the model axis splits it."""
+    its slice, the output gathered, where the model axis splits it. Without
+    ``bias`` the convolution leaves its bias out (``whole_bias`` gives it)."""
+    b = conv.bias if bias else None
     shard = getattr(conv, "model_shard", None)
     if shard is None:
-        return conv3d(x, conv.weight, conv.bias, padding)
-    return shard.apply(lambda h: conv3d(h, conv.weight, conv.bias, padding), x)
+        return conv3d(x, conv.weight, b, padding)
+    return shard.apply(lambda h: conv3d(h, conv.weight, b, padding), x)
+
+
+def whole_bias(conv: nn.Conv3d) -> torch.Tensor | None:
+    """``conv``'s float32 bias over all its output channels: on a layer the
+    model axis splits, its slices gathered over the model group (a
+    collective)."""
+    shard = getattr(conv, "model_shard", None)
+    return conv.bias if shard is None or conv.bias is None else shard.gather(conv.bias)
 
 
 def cast_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:

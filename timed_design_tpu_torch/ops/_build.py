@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources into shared libraries and load them.
+"""Build the package's CUDA sources into shared libraries, load and launch
+them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) at first use, into ``_build/`` beside this
@@ -9,6 +10,7 @@ failed build raises: there is no fallback for a kernel that did not build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -77,3 +79,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)[0]))
             _libs[name] = lib
         return lib
+
+
+@functools.cache
+def num_sms(device: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch(device: int | None, what: str, call) -> None:
+    """``call(num_sms, stream)`` with CUDA ``device`` (None: the current
+    one) current, on its current stream; raises on the CUDA error ``call``
+    returns."""
+    import torch
+
+    index = torch.cuda.current_device() if device is None else device
+    if index == torch.cuda.current_device():
+        err = call(num_sms(index), torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = call(num_sms(index), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from ._build import launch
+
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
@@ -199,9 +201,10 @@ def sample_inverse_cdf(
         return codes, counts.zero_()
     probs = probs.contiguous()
     key0, key1 = _seed_key(seed)
-    _on_device(probs.device.index, lambda sms, stream: _lib().sample_inverse_cdf(
-        probs.data_ptr(), _ptr(class_map), codes.data_ptr(), counts.data_ptr(), L, C, n,
-        codes.element_size(), rows, key0, key1, sms, stream))
+    launch(probs.device.index, "sample_inverse_cdf", lambda sms, stream: (
+        _lib().sample_inverse_cdf(
+            probs.data_ptr(), _ptr(class_map), codes.data_ptr(), counts.data_ptr(), L, C, n,
+            codes.element_size(), rows, key0, key1, sms, stream)))
     sample_inverse_cdf.launches += 1
     return codes, counts
 
@@ -258,32 +261,17 @@ def _launch_batched(
         return codes, counts.zero_()
     probs, dev_offsets = probs.contiguous(), dev_offsets.contiguous()
     key0, key1 = _seed_key(seed)
-    _on_device(probs.device.index, lambda sms, stream: _lib().sample_inverse_cdf_batched(
-        probs.data_ptr(), dev_offsets.data_ptr(), B, _ptr(class_map), codes.data_ptr(),
-        counts.data_ptr(), total, C, n, codes.element_size(), rows, key0, key1, sms, stream))
+    launch(probs.device.index, "sample_inverse_cdf", lambda sms, stream: (
+        _lib().sample_inverse_cdf_batched(
+            probs.data_ptr(), dev_offsets.data_ptr(), B, _ptr(class_map), codes.data_ptr(),
+            counts.data_ptr(), total, C, n, codes.element_size(), rows, key0, key1, sms,
+            stream)))
     sample_inverse_cdf_batched.launches += 1
     return codes, counts
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
-
-
-def _on_device(dev: int, launch) -> None:
-    """``launch(num_sms, stream)`` with ``dev`` current; raises on a CUDA
-    error from the launch."""
-    if dev == torch.cuda.current_device():
-        err = launch(_num_sms(dev), torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = launch(_num_sms(dev), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sample_inverse_cdf launch failed: CUDA error {err}")
-
-
-@functools.cache
-def _num_sms(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _device_index(device: torch.device) -> int:

@@ -49,6 +49,18 @@ class ModelShard:
         y = fn(_SumGradOverModel.apply(x, self.group))
         return _GatherChannels.apply(y, self)
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The slices of ``x`` over the model group, whole along dim 0 (a
+        collective; no gradient)."""
+        return _gather_slices(x, self)
+
+
+def _gather_slices(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(shard.n)]
+    dist.all_gather(parts, x, group=shard.group)
+    return torch.cat(parts, dim=0)
+
 
 class _SumGradOverModel(torch.autograd.Function):
     @staticmethod
@@ -119,8 +131,5 @@ def gather_state_dict(module: nn.Module, tensors: dict) -> dict:
             key = f"{name}.{leaf}" if name else leaf
             if key not in out:
                 continue
-            x = out[key].detach().contiguous()
-            parts = [torch.empty_like(x) for _ in range(shard.n)]
-            dist.all_gather(parts, x, group=shard.group)
-            out[key] = torch.cat(parts, dim=0)
+            out[key] = _gather_slices(out[key], shard)
     return out
