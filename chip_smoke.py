@@ -16,9 +16,7 @@ kernel of the path was not launched, disagrees with its plain version, or
 an output is wrong:
   - ``td-serve``: the design server in-process on the full-width
     TIMED_rotamer model (random weights from a fixed seed, bfloat16, batch
-    512) and real requests; then one warm request profiled (stage medians,
-    device busy time and idle share, the kernels that take the most device
-    time) and the sampling stage alone (every device operation it runs);
+    512) and real requests;
   - ``td-sample``: a prediction CSV and a datasetmap made by the port's own
     full-width TIMED_rotamer session (1ubq and a 760-residue multichain),
     sampled in-process by ``main_sample`` (one batched launch per call) and
@@ -39,17 +37,14 @@ an output is wrong:
     temperature);
   - training (``train/``) on the same 988 frames, shuffled, batch 256: one
     float32 train step of each family at registry widths on the card and
-    the CPU against a float64 step; registry TIMED trained by ``fit`` in
-    bfloat16 and float32 (ms per step, frames/s, device busy share, FLOP
-    share) on those frames and on a set of 512 structures; TIMED overfit on
-    1ubq, its checkpoint through ``td-predict --voxelize``. It reaches no
-    kernel of the port either;
+    the CPU against a float64 step; one epoch of ``fit`` of registry TIMED
+    in bfloat16 and float32 on those frames; TIMED overfit on 1ubq, its
+    checkpoint through ``td-predict --voxelize``. It reaches no kernel of
+    the port either;
   - quantized inference: the int8 convolution kernel, its int32 route and
     its fused rescale, cast and bias, held to its plain version on every
     convolution shape of six registry models and timed at TIMED's shapes at
-    batch 512 against the int32 route plus the PyTorch epilogue; one TIMED
-    int8 forward's device time split into the kernel, the quantization
-    passes and the rest, fused and unfused; each ``--quantize`` mode through
+    batch 512 against its bound; each ``--quantize`` mode through
     DesignSession (float32 against the CPU, bfloat16); ``td-predict
     --voxelize --quantize int8`` as a subprocess and in-process (frames/s
     per mode); ``td-serve --quantize int8`` with samples, which launches
@@ -63,8 +58,8 @@ an output is wrong:
     report where matplotlib is installed, else the refusals of
     ``td-report``, ``td-predict --report`` and ``/report``;
   - HDF5 frame datasets (``check_hdf5``): ``td-voxelize``,
-    ``td-convert-dataset``, ``td-predict`` from each layout, ``fit`` from the
-    files, ``td-train`` on 1ubq;
+    ``td-convert-dataset``, ``td-predict`` from each layout, one epoch of
+    ``fit`` from the files, ``td-train`` on 1ubq;
   - Keras ``.h5`` release files (``check_keras``): registry TIMED and
     TIMED_rotamer written by the port's exporter, imported and held to the
     native modules (float32, bf16 at batch 512); ``td-serve --model
@@ -112,6 +107,9 @@ import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+# the card's peaks and a Philox block's least work, as the benchmark takes them
+from tdbench.peaks import HBM_BYTES_PER_S, INT32_OPS_PER_S, PHILOX_OPS
 
 ROOT = Path(__file__).resolve().parent
 UBQ = ROOT / "tests" / "testing_files" / "1ubq.pdb1.gz"
@@ -197,17 +195,6 @@ def graph_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (5 * reps)
-
-
-# The card's peaks for the bound: HBM3 at 3.35 TB/s; 32-bit integer
-# operations at 132 SMs x 64 INT32 lanes x 1.98 GHz (boost) = 16.7 T/s.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# The least integer work of one Philox4x32-10 block: 10 rounds of two
-# 32x32 -> 64-bit products (four multiply halves) and two three-input XORs
-# (one LOP3 each). The key schedule depends only on the seed, the same for
-# every draw, so it is not counted.
-PHILOX_OPS = 60
 
 
 def bound(L: int, C: int, n: int, other_bytes: int) -> tuple[float, str]:
@@ -491,92 +478,6 @@ def stages(timings: dict) -> str:
     return ", ".join(f"{k} {timings[k] * 1e3:.1f}" for k in STAGES)
 
 
-def busy_us(intervals) -> float:
-    """Device busy time (us): the union of (start, end, ...) intervals."""
-    busy, end = 0.0, float("-inf")
-    for a, b, *_ in sorted(intervals):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    return busy
-
-
-def profile_request(designer, pdb: str, reps: int = 10) -> None:
-    """Where one warm 1ubq design with 100 samples spends its time: the
-    server's stage medians over ``reps`` requests, then one request under
-    torch.profiler. Device busy time is the union of the kernel and copy
-    intervals on the card; the idle share is the rest of the wall time."""
-    import numpy as np
-    import torch
-
-    from timed_design_tpu_torch.cli.serve import _design_payload
-
-    def request():
-        return _design_payload(designer, pdb, n_samples=100, temperature=0.2, seed=7)
-
-    runs = [request()["timings_s"] for _ in range(reps)]
-    log(f"profile: stage medians of {reps} warm 1ubq requests (ms): " + ", ".join(
-        f"{k} {np.median([r[k] for r in runs]) * 1e3:.2f}" for k in STAGES))
-    torch.cuda.synchronize()
-    wall = []
-
-    def timed_request():
-        t0 = time.perf_counter()
-        request()
-        torch.cuda.synchronize()
-        wall.append((time.perf_counter() - t0) * 1e6)
-
-    dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in device_events(timed_request, cpu=True))
-    if not dev:
-        log("profile: one request: the profiler returned no device events; not measured")
-        return
-    wall_us = wall[-1]
-    busy, by_name = busy_us(dev), {}
-    for a, b, name in dev:
-        by_name[name] = by_name.get(name, 0.0) + (b - a)
-    kernels = sum(1 for *_, n in dev if not n.startswith(("Memcpy", "Memset")))
-    log(f"profile: one request, wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
-        f"{kernels} kernels, {len(dev) - kernels} copies/sets")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"profile:   {us / 1e3:7.3f} ms  {name[:90]}")
-
-
-def profile_sampling(session, reps: int = 10) -> None:
-    """The sampling stage of a warm 1ubq request alone (temperature 0.2,
-    100 samples, the rotamer head): host wall per call, and one call under
-    torch.profiler with every device operation it runs."""
-    import numpy as np
-    import torch
-
-    from timed_design_tpu_torch.sample.sampler import apply_temperature, sample_structure
-
-    probs, _ = session.design(UBQ)
-
-    def stage():
-        p = apply_temperature(torch.as_tensor(probs, device=session.device), 0.2)
-        return sample_structure(p, 100, 7, rotamer_mode=probs.shape[1] == 338)
-
-    walls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        stage()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    dev = device_events(stage, cpu=True)
-    if not dev:
-        log("profile sampling: the profiler returned no device events; not measured")
-        return
-    names: dict[str, list[float]] = {}
-    for e in dev:
-        names.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    log(f"profile sampling: median wall {np.median(walls):.3f} ms over {reps} warm calls; "
-        f"one call: {len(dev)} device operations, "
-        f"{sum(map(sum, names.values())) / 1e3:.4f} ms device time")
-    for name, us in sorted(names.items(), key=lambda kv: -sum(kv[1])):
-        log(f"profile sampling:   {len(us):3d} x {sum(us) / len(us):8.2f} us  {name[:90]}")
-
-
 def check_serving() -> dict:
     """The design server on the card: counts the kernel launches it makes."""
     import numpy as np
@@ -620,8 +521,6 @@ def check_serving() -> dict:
         lat["design_1ubq_n100_8_concurrent"] = [dt for _, _, dt in conc]
         launches = sample_inverse_cdf.launches
         launches_batched = sample_inverse_cdf_batched.launches
-        profile_request(d, pdb)
-        profile_sampling(d.session)
     finally:
         server.shutdown()
         server.server_close()
@@ -1115,37 +1014,6 @@ def write_structures(inputs: Path) -> None:
     (inputs / "2nmr.pdb").write_text(nmr_pdb(text))
 
 
-def noisy_multichain_pdb(text: str, chains: int, rng) -> str:
-    """``multichain_pdb`` of ``chains`` copies, every atom moved by noise of
-    0.2 A drawn from ``rng``."""
-    lines = multichain_pdb(text, chains).splitlines()
-    atoms = [i for i, line in enumerate(lines) if line.startswith("ATOM")]
-    noise = rng.normal(0, 0.2, (len(atoms), 3))
-    for i, d in zip(atoms, noise):
-        line = lines[i]
-        x, y, z = (float(line[30:38]), float(line[38:46]), float(line[46:54])) + d
-        lines[i] = f"{line[:30]}{x:8.3f}{y:8.3f}{z:8.3f}{line[54:]}"
-    return "\n".join(lines) + "\n"
-
-
-# The training set of many structures: MANY_STRUCTURES files, each of 1 to 6
-# chains of 1ubq (76 to 456 residues, 266 on average, about a PDB chain's
-# length) with their own noise, and a map of MANY_ROWS of their rows drawn
-# from the seed: a shuffled batch of 256 rows then touches about 200
-# structures, near the 256 of a batch over a real set of thousands of chains.
-MANY_STRUCTURES, MANY_ROWS = 512, 2560
-
-
-def write_many_structures(inputs: Path) -> None:
-    import numpy as np
-
-    rng = np.random.default_rng(SEED)
-    inputs.mkdir()
-    text = gzip.decompress(UBQ.read_bytes()).decode()
-    for k in range(MANY_STRUCTURES):
-        (inputs / f"s{k:04d}.pdb").write_text(noisy_multichain_pdb(text, 1 + k % 6, rng))
-
-
 PREDICT_STRUCTURAL = ("datasetmap.txt", "encoded_labels.csv", "dataset.fasta")
 
 
@@ -1629,17 +1497,6 @@ def check_analyse() -> dict:
 
 
 TRAIN_FAMILIES = ("TIMED", "ProDCoNN", "DenseNet", "DenseCPD")
-# Dense bf16 peak of an H100 SXM (NVIDIA's data sheet, no sparsity), and the
-# float32 peak outside the tensor cores (the float32 run has TF32 off)
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
-
-
-def timed_forward_flops(module) -> float:
-    """Multiply-adds x 2 of one TIMED forward on a 21^3 frame: the 3^3 convs
-    of the blocks and the 1^3 head; BatchNorm, ELU and pooling not counted."""
-    convs = [b.conv for b in module.blocks] + [module.head]
-    return sum(2 * c.weight[0].numel() * c.out_channels * 21 ** 3 for c in convs)
 
 
 def one_train_step(module, device, x, y, threads: int | None = None, mesh=None) -> dict:
@@ -1813,140 +1670,23 @@ def train_step_parity(name: str, x, y) -> dict:
     return out
 
 
-def train_throughput(source, dtype, label: str, mesh=None) -> dict:
-    """Registry TIMED trained by ``fit`` over ``source`` (shuffled, batch
-    256; ``label`` names its frames): one epoch to warm up, then 3 epochs
-    timed. ms per step from CUDA events around each train step (median of
-    the warm steps, and of the full 256-frame ones), frames/s from the host
-    clock over the 3 epochs (ending in a synchronize), and the device busy
-    share of a 4th epoch under torch.profiler. fit reads the step's metrics
-    at step 0 of each call only (log_every), so no step but that one waits
-    on the host. ``mesh``: ``fit`` over it (its collectives included)."""
-    import statistics
-
+def fit_one_epoch(source, dtype, mesh=None) -> int:
+    """Registry TIMED in ``dtype`` (its seed's weights) trained by ``fit``
+    for one epoch over ``source`` (over ``mesh`` when given): it must step,
+    and its evaluation-mode loss over ``source`` after it must be finite.
+    Returns the steps."""
     import torch
 
-    import timed_design_tpu_torch.train.train as train_mod
     from timed_design_tpu_torch.models import MODEL_REGISTRY
+    from timed_design_tpu_torch.train import evaluate, fit
 
     torch.manual_seed(SEED)
     module = MODEL_REGISTRY["TIMED"].build(compute_dtype=dtype)
-    events: list = []
-    make_step = train_mod.make_train_step
-
-    def timed_make_step(*args, **kw):
-        step = make_step(*args, **kw)
-
-        def run(x, y, generator=None):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = step(x, y, generator)
-            e1.record()
-            events.append((e0, e1, x.shape[0]))
-            return out
-
-        return run
-
-    def epochs(n):
-        return train_mod.fit(module, source, n_classes=20, epochs=n, log_every=10_000,
-                             device="cuda", **({} if mesh is None else {"mesh": mesh}))
-
-    train_mod.make_train_step = timed_make_step
-    try:
-        epochs(1)
-        events.clear()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = epochs(3)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        step_ms = [a.elapsed_time(b) for a, b, _ in events]
-        full_ms = [ms for ms, (*_, n) in zip(step_ms, events) if n == source.batch_size]
-        walls = []
-
-        def one_epoch():
-            t1 = time.perf_counter()
-            epochs(1)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t1) * 1e6)
-
-        dev = [(e.time_range.start, e.time_range.end) for e in device_events(one_epoch)]
-    finally:
-        train_mod.make_train_step = make_step
-    frames = 3 * len(source.entries)
-    fwd = timed_forward_flops(module)
-    out = {"steps": len(step_ms), "step_ms_median": statistics.median(step_ms),
-           "full_step_ms_median": statistics.median(full_ms), "frames_per_s": frames / wall,
-           "wall_s": wall, "busy_share": busy_us(dev) / walls[-1] if dev else None,
-           "forward_gflop_per_frame": fwd / 1e9, "step_tflop": 3 * fwd * source.batch_size / 1e12,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "fit_steps": state.step}
-    achieved = 3 * fwd * out["frames_per_s"]
-    out["tflop_per_s"] = achieved / 1e12
-    out["bf16_peak_share"] = achieved / BF16_FLOPS
-    shares = f"{out['bf16_peak_share']:.4f} of the dense bf16 peak"
-    if dtype == torch.float32:
-        out["fp32_peak_share"] = achieved / FP32_FLOPS
-        shares += f", {out['fp32_peak_share']:.3f} of the float32 peak"
-    busy = "not measured" if out["busy_share"] is None else f"{out['busy_share']:.3f}"
-    log(f"train TIMED {str(dtype).split('.')[-1]}, {label}, {len(source.entries)} frames an "
-        f"epoch, batch 256, 3 warm epochs: "
-        f"{out['step_ms_median']:.2f} ms/step median of {len(step_ms)} "
-        f"({out['full_step_ms_median']:.2f} ms per full 256-frame step), "
-        f"{out['frames_per_s']:.0f} frames/s, device busy share over one epoch {busy}; "
-        f"{out['forward_gflop_per_frame']:.3f} GFLOP a frame forward, a step 3x: "
-        f"{out['step_tflop']:.2f} TFLOP per 256 frames, {achieved / 1e12:.1f} TFLOP/s = "
-        f"{shares}; peak memory {out['peak_mem_gb']:.2f} GB; {gpu_name_and_power()}")
-    return out
-
-
-def many_structure_source(work: Path, dev) -> tuple:
-    """The many-structure training set (``write_many_structures``) and a
-    FrameBatchSource over MANY_ROWS of its rows drawn from the seed,
-    shuffled, batch 256; with the set's sizes, the structures that a batch
-    of the source's first epoch touches on average, and the set-up time."""
-    import numpy as np
-
-    from timed_design_tpu_torch.io import DatasetMap
-    from timed_design_tpu_torch.voxel import FrameBatchSource, create_flat_dataset_map, make_frame_set
-
-    t0 = time.perf_counter()
-    write_many_structures(work / "many")
-    fs = make_frame_set(sorted((work / "many").glob("*.pdb")))
-    entries = create_flat_dataset_map(fs).entries
-    rows = np.sort(np.random.default_rng(SEED).choice(len(entries), MANY_ROWS, replace=False))
-    source = FrameBatchSource(fs, DatasetMap(entries=[entries[i] for i in rows]), 256, device=dev,
-                              shuffle=True, shuffle_seed=0)
-    order = np.random.default_rng(0).permutation(MANY_ROWS)  # the source's first epoch
-    touched = [len({source.entries[i][0] for i in order[b : b + 256]})
-               for b in range(0, MANY_ROWS, 256)]
-    info = {"structures": len(fs.structures), "frames": len(entries), "rows": MANY_ROWS,
-            "structures_per_batch": float(np.mean(touched)), "setup_s": time.perf_counter() - t0}
-    log(f"train: many-structure set, {info['structures']} structures, {info['frames']} frames, "
-        f"{MANY_ROWS} rows drawn, {info['structures_per_batch']:.1f} structures a batch on "
-        f"average; written and read in {info['setup_s']:.1f} s")
-    return source, info
-
-
-def train_many_structures() -> dict:
-    """Registry TIMED trained by ``fit`` in bfloat16 and float32 over the
-    many-structure set (``many_structure_source``): what the batch source
-    costs where a batch touches some 200 structures, as in a real training
-    run. Callable alone: ``python3 -c "import chip_smoke as c;
-    c.train_many_structures()"``."""
-    import tempfile
-
-    import torch
-
-    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_many_", dir=ROOT))
-    try:
-        source, out = many_structure_source(work, torch.device("cuda"))
-        for dt in (torch.bfloat16, torch.float32):
-            out[str(dt).split(".")[-1]] = train_throughput(source, dt, "many-structure set")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return out
+    on_mesh = {} if mesh is None else {"mesh": mesh}
+    state = fit(module, source, n_classes=20, log_every=10_000, device="cuda", **on_mesh)
+    loss = evaluate(module, source, **on_mesh)["loss"]
+    assert state.step > 0 and math.isfinite(loss), f"fit: {state.step} steps, loss {loss}"
+    return state.step
 
 
 def check_train() -> dict:
@@ -1956,9 +1696,9 @@ def check_train() -> dict:
     DenseCPD at registry widths on the first 32 frames of a batch, dropout
     off, on the card and on CPU copies, held to a float64 step: the loss,
     each leaf's gradient and the BatchNorm running statistics
-    (train_step_parity, STEP_TOL). (2) Registry TIMED trained by ``fit`` in
-    bfloat16 and float32 (train_throughput), over these 4 structures and
-    over the many-structure set (train_many_structures). (3) Registry TIMED
+    (train_step_parity, STEP_TOL). (2) Registry TIMED trained by ``fit`` for
+    one epoch in bfloat16 and float32, and in bfloat16 with nn.BatchNorm3d's
+    own forward (fit_one_epoch). (3) Registry TIMED
     (bn_momentum 0.9, lr 3e-3, bfloat16) overfit on 1ubq's 76 frames until
     the train top-1 and the evaluation-mode top-1 are at least 0.9, 600
     steps at most; its checkpoint, saved by save_checkpoint, through
@@ -2004,19 +1744,16 @@ def check_train() -> dict:
         parity = {name: train_step_parity(name, x32, y32) for name in TRAIN_FAMILIES}
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
-        throughput = {str(dt).split(".")[-1]: train_throughput(source, dt, "4 structures")
-                      for dt in (torch.bfloat16, torch.float32)}
+        fit_steps = {str(dt).split(".")[-1]: fit_one_epoch(source, dt)
+                     for dt in (torch.bfloat16, torch.float32)}
         # the bfloat16 run again with nn.BatchNorm3d's own forward (its
-        # running variance the unbiased one): the port's BatchNorm takes its
-        # statistics from the same kernel on the card, at the same cost
+        # running variance the unbiased one)
         forward = layers.BatchNorm3d.forward
         layers.BatchNorm3d.forward = nn.BatchNorm3d.forward
         try:
-            throughput["bfloat16_kernel_statistics"] = train_throughput(
-                source, torch.bfloat16, "4 structures, nn.BatchNorm3d's statistics")
+            fit_steps["bfloat16_kernel_statistics"] = fit_one_epoch(source, torch.bfloat16)
         finally:
             layers.BatchNorm3d.forward = forward
-        many = train_many_structures()
 
         fs1 = make_frame_set([inputs / "1ubq.pdb1.gz"])
         dmap1 = create_flat_dataset_map(fs1)
@@ -2067,8 +1804,7 @@ def check_train() -> dict:
         shutil.rmtree(work, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
     log(f"train: phase passed in {phase_s:.1f} s; launches of the sampling kernel: 0")
-    return {"launches": launches, "parity": parity, "throughput": throughput,
-            "many_structures": many, "overfit": {
+    return {"launches": launches, "parity": parity, "fit_steps": fit_steps, "overfit": {
                 "steps": state.step, "top1": top1, "seconds": overfit_s, "recovery": recovery},
             "phase_s": phase_s}
 
@@ -2187,15 +1923,6 @@ def replay_calls(calls, on_cpu: bool) -> tuple[dict, float]:
     return checked, max_err
 
 
-def epilogue_unfused(acc, scale, bias, out_dtype):
-    """The int8 branch's PyTorch epilogue before it was fused: the int32
-    sums to float32, times the scale, cast, plus the bias."""
-    import torch
-
-    out = acc.to(torch.float32).mul_(scale).to(out_dtype)
-    return out if bias is None else out + bias
-
-
 def check_conv_kernel() -> dict:
     """conv3d_int8 against conv3d_int8_plain (torch.equal), both routes: the
     int32 sums, and the fused rescale, cast and bias in float32 and
@@ -2209,9 +1936,8 @@ def check_conv_kernel() -> dict:
     (3) at each of registry TIMED's convolutions at batch 512 on random
         codes, held to the plain version on the card, then timed: the fused
         kernel's device time in bfloat16 with a bias (a CUDA graph of 5
-        calls), the same function before it was fused (the int32 route plus
-        the PyTorch epilogue, a graph of 5), the int32 route alone, each
-        against its bound (2 and 4 bytes an output value), the plain
+        calls) and the int32 route alone, each against its bound (2 and 4
+        bytes an output value), the plain
         version's time (one call, after one warm-up), the library call's
         (one float64 F.conv3d of the codes, the same integer sums, a CUDA
         graph of 1 call) and, as context only, cuDNN's bfloat16 F.conv3d of
@@ -2279,8 +2005,6 @@ def check_conv_kernel() -> dict:
         del fused
         assert all(equal.values()), f"kernel differs from plain at batch 512: {cin}->{cout} k={k}"
         ms = graph_ms(lambda: conv3d_int8(x, w, pad, scale, bias, torch.bfloat16), reps=5)
-        before_ms = graph_ms(lambda: epilogue_unfused(conv3d_int8(x, w, pad), scale, bias,
-                                                      torch.bfloat16), reps=5)
         int32_ms = graph_ms(lambda: conv3d_int8(x, w, pad), reps=5)
         xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
         wb = w.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
@@ -2296,234 +2020,26 @@ def check_conv_kernel() -> dict:
         int32_bound_ms, int32_bound_by = conv_bound(512, 21, cin, cout, k, pad, 4)
         shapes.append({"cin": cin, "cout": cout, "k": k, "pad": pad, "batch": 512, "ms": ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
-                       "int32_epilogue_ms": before_ms, "int32_ms": int32_ms,
+                       "int32_ms": int32_ms,
                        "int32_bound_ms": int32_bound_ms, "int32_bound_by": int32_bound_by,
                        "int32_bound_share": int32_bound_ms / int32_ms,
                        "cudnn_bf16_ms": cudnn_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        "equal_to_plain": True})
         log(f"conv3d_int8 {cin}->{cout} k={k} pad={pad}, batch 512 at 21^3: both routes equal to "
             f"the plain version on the card; fused bf16 + bias {ms:.3f} ms (a graph of 5), bound "
-            f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}; the same function "
-            f"before (int32 route + PyTorch epilogue) {before_ms:.3f} ms; int32 route {int32_ms:.3f}"
-            f" ms, bound {int32_bound_ms:.3f} ms ({int32_bound_by}), share "
+            f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}; int32 route "
+            f"{int32_ms:.3f} ms, bound {int32_bound_ms:.3f} ms ({int32_bound_by}), share "
             f"{int32_bound_ms / int32_ms:.3f}; library (float64 F.conv3d of the codes) "
             f"{library_ms:.3f} ms; plain {plain_ms:.1f} ms; cuDNN bf16 conv3d (context) "
             f"{cudnn_ms:.3f} ms; {gpu_name_and_power()}")
         del x, w
         torch.cuda.empty_cache()
     five = sum(s["ms"] for s in shapes[:PER_FORWARD])
-    log(f"conv3d_int8: TIMED's five fused launches per forward at batch 512 {five:.3f} ms; the same "
-        f"five before {sum(s['int32_epilogue_ms'] for s in shapes[:PER_FORWARD]):.3f} ms; cuDNN "
+    log(f"conv3d_int8: TIMED's five fused launches per forward at batch 512 {five:.3f} ms; cuDNN "
         f"bf16 (context) {sum(s['cudnn_bf16_ms'] for s in shapes[:PER_FORWARD]):.3f} ms; bound "
         f"{sum(s['bound_ms'] for s in shapes[:PER_FORWARD]):.3f} ms")
     return {"shapes_checked": len(checked), "batch_512_calls_checked": len(at_batch),
             "max_abs_err": max_err, "per_shape": shapes}
-
-
-class Int32Ops:
-    """The operators a region runs on an int32 tensor (a TorchDispatchMode
-    made when entered): the unfused epilogue's casts of the sums."""
-
-    def __enter__(self):
-        import torch
-        from torch.utils._python_dispatch import TorchDispatchMode
-        from torch.utils._pytree import tree_leaves
-
-        ops = self.ops = []
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                if any(isinstance(a, torch.Tensor) and a.dtype == torch.int32
-                       for a in tree_leaves((args, kwargs))):
-                    ops.append(str(func))
-                return func(*args, **kwargs)
-
-        self.mode = Mode()
-        self.mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        return self.mode.__exit__(*exc)
-
-
-def int8_forward_split() -> dict:
-    """One registry TIMED int8 forward in bfloat16 at batch 512 (1ubq's
-    frames tiled) split by device time, for two designs on the same weights
-    and frames: "fused" (this kernel, as the port runs it) and "unfused"
-    (the int32 route plus the PyTorch epilogue, the design before the
-    epilogue was fused). Each part is a CUDA graph of its operations
-    (graph_ms), so no host time sits between them:
-      - forward: the whole forward;
-      - quantize: the weight and activation quantization passes of the five
-        convolutions (quantize_weight, quantize_activation, the casts of the
-        codes to int8 and s_x s_w), on the inputs the forward gave them;
-      - kernel: the five conv3d_int8 calls (with the wrapper's preparation:
-        the weights' re-layout, the first layer's zero channels);
-      - epilogue: the unfused design's five PyTorch epilogues;
-      - other: the forward less those (ELU, BatchNorm, pooling, softmax).
-    Also the warm eager forward (CUDA events, 5 forwards) and the operators
-    each design runs on int32 tensors (none when fused)."""
-    import torch
-
-    import timed_design_tpu_torch.models.layers as layers
-    import timed_design_tpu_torch.models.quantize as quantize
-    from timed_design_tpu_torch.models import MODEL_REGISTRY, quantized_convs
-    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8
-
-    torch.manual_seed(SEED)
-    model = MODEL_REGISTRY["TIMED"].build().to("cuda").eval()
-    model.compute_dtype = torch.bfloat16
-    x = torch.cat([ubq_frames(76)] * 7)[:512]
-    original = layers.quantized_conv3d
-    inputs = []  # (x, weight, bias, padding) of each quantized convolution
-
-    def recording(mode, xc, w, b, padding=0, *geometry):  # TIMED's: stride 1, no dilation
-        inputs.append((xc, w, b, padding))
-        return original(mode, xc, w, b, padding, *geometry)
-
-    def unfused(xq, wq, padding, scale, bias=None, out_dtype=None):
-        return epilogue_unfused(conv3d_int8(xq, wq, padding), scale, bias,
-                                out_dtype or torch.float32)
-
-    def forward():
-        with torch.inference_mode(), quantized_convs("int8"):
-            return model(x)
-
-    def codes(xc, w, padding):
-        wq, s_w = quantize.quantize_weight(w)
-        xq, s_x = quantize.quantize_activation(xc)
-        return (xq.to(torch.int8).permute(0, 2, 3, 4, 1), wq.to(torch.int8).permute(0, 2, 3, 4, 1),
-                padding, s_x * s_w)
-
-    layers.quantized_conv3d = recording
-    try:
-        forward()
-    finally:
-        layers.quantized_conv3d = original
-    assert len(inputs) == PER_FORWARD, len(inputs)
-    with torch.inference_mode():
-        quantize_ms = graph_ms(lambda: [codes(xc, w, pad) for xc, w, _, pad in inputs], reps=1)
-        calls = [(codes(xc, w, pad), None if b is None else b.to(xc.dtype), xc.dtype)
-                 for xc, w, b, pad in inputs]
-        sums = [conv3d_int8(*c[:3]) for c, _, _ in calls]
-        parts = {
-            "fused": {"kernel_ms": graph_ms(lambda: [conv3d_int8(*c, b, dt) for c, b, dt in calls],
-                                            reps=1),
-                      "epilogue_ms": 0.0},
-            "unfused": {"kernel_ms": graph_ms(lambda: [conv3d_int8(*c[:3]) for c, _, _ in calls],
-                                              reps=1),
-                        "epilogue_ms": graph_ms(lambda: [
-                            epilogue_unfused(acc, c[3], b, dt)
-                            for acc, (c, b, dt) in zip(sums, calls)], reps=1)},
-        }
-        del sums, calls
-    out = {}
-    try:
-        for design, route in (("unfused", unfused), ("fused", conv3d_int8), ("unfused", unfused)):
-            quantize.conv3d_int8 = route
-            with Int32Ops() as int32:
-                forward()
-            eager_ms = time_ms(forward, reps=5, warmup=1)
-            with torch.inference_mode():
-                forward_ms = graph_ms(forward, reps=1)
-            row = {"eager_forward_ms": eager_ms, "forward_ms": forward_ms, "quantize_ms": quantize_ms,
-                   **parts[design], "int32_ops": sorted(set(int32.ops))}
-            row["other_ms"] = forward_ms - quantize_ms - row["kernel_ms"] - row["epilogue_ms"]
-            out.setdefault(design, []).append(row)
-            log(f"TIMED int8 forward, bf16, batch 512, {design}: eager {eager_ms:.3f} ms a forward; "
-                f"device (CUDA graphs) {forward_ms:.3f} ms = kernel {row['kernel_ms']:.3f} + "
-                f"epilogue {row['epilogue_ms']:.3f} + quantization {quantize_ms:.3f} + other "
-                f"{row['other_ms']:.3f}; ops on int32 tensors: {row['int32_ops'] or 'none'}; "
-                f"{gpu_name_and_power()}")
-    finally:
-        quantize.conv3d_int8 = conv3d_int8
-    assert not out["fused"][0]["int32_ops"], out["fused"]
-    assert all(r["int32_ops"] for r in out["unfused"]), out["unfused"]
-    return out
-
-
-def conv3d_int8_versus_parent(parent_src: str, batch: int = 512) -> list:
-    """The int8 kernel against an earlier version of it on one card, in one
-    process, at registry TIMED's convolutions; not part of main().
-
-        python3 -c "import chip_smoke as c; c.conv3d_int8_versus_parent('OLD/conv3d_int8.cu')"
-
-    OLD is the ``timed_design_tpu_torch/csrc`` of an earlier checkout (``git
-    archive`` it into a git-ignored directory of the repo), whose
-    ``conv3d_int8`` has the int32-only C interface (x, w, out, B, D, H, W, C,
-    N, k, pad, stream). For each shape at ``batch`` on 21^3 frames (random
-    codes, an (N,) scale, a bfloat16 bias) it checks the two kernels' int32
-    sums equal and the fused output equal to its plain version on the card,
-    then times, each as a CUDA graph of 5 calls, in turns (the order, then
-    reversed):
-      - old: the earlier kernel's int32 sums plus the PyTorch epilogue, the
-        function the int8 branch computed before the epilogue was fused;
-      - new_int32_epilogue: the same with this checkout's int32 route;
-      - new_fused: this checkout's kernel, sums, rescale, cast and bias in
-        one launch;
-      - old_int32 and new_int32: each kernel's int32 sums alone.
-    Logs a line per shape with the card's name and power limit and returns
-    the rows."""
-    import ctypes
-
-    import torch
-
-    from timed_design_tpu_torch.ops import _build
-    from timed_design_tpu_torch.ops.conv3d_int8 import conv3d_int8, conv3d_int8_plain
-
-    lib = _build.BUILD_DIR / "libconv3d_int8_parent.so"
-    _build.BUILD_DIR.mkdir(exist_ok=True)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), parent_src], check=True,
-                   capture_output=True)
-    parent = ctypes.CDLL(str(lib))
-    parent.conv3d_int8.restype = ctypes.c_int
-    parent.conv3d_int8.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    card = gpu_name_and_power()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = []
-    for cin, cout, k, pad in TIMED_CONVS:
-        x = torch.randint(-127, 128, (batch, 21, 21, 21, cin), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        w = torch.randint(-127, 128, (cout, k, k, k, cin), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        scale = torch.rand(cout, generator=gen, device="cuda") * 1e-4 + 1e-5
-        bias = torch.randn(cout, generator=gen, device="cuda").to(torch.bfloat16)
-        do = 21 + 2 * pad - k + 1
-        old_out = torch.empty((batch, do, do, do, cout), dtype=torch.int32, device="cuda")
-
-        def old_int32():
-            err = parent.conv3d_int8(x.data_ptr(), w.data_ptr(), old_out.data_ptr(), batch, 21,
-                                     21, 21, cin, cout, k, pad,
-                                     torch.cuda.current_stream().cuda_stream)
-            assert err == 0, err
-            return old_out
-
-        fns = {
-            "old": lambda: epilogue_unfused(old_int32(), scale, bias, torch.bfloat16),
-            "new_int32_epilogue": lambda: epilogue_unfused(conv3d_int8(x, w, pad), scale, bias,
-                                                           torch.bfloat16),
-            "new_fused": lambda: conv3d_int8(x, w, pad, scale, bias, torch.bfloat16),
-            "old_int32": old_int32,
-            "new_int32": lambda: conv3d_int8(x, w, pad),
-        }
-        assert torch.equal(old_int32(), conv3d_int8(x, w, pad)), (cin, cout)
-        assert torch.equal(fns["new_fused"](),
-                           conv3d_int8_plain(x, w, pad, scale, bias, torch.bfloat16)), (cin, cout)
-        times = {name: [] for name in fns}
-        for turn in (list(fns), list(fns)[::-1]):
-            for name in turn:
-                times[name].append(graph_ms(fns[name], reps=5))
-        bound_ms, bound_by = conv_bound(batch, 21, cin, cout, k, pad, 2)
-        rows.append({"cin": cin, "cout": cout, "k": k, "pad": pad, "batch": batch, "card": card,
-                     "bound_bf16_ms": bound_ms, "bound_by": bound_by,
-                     **{f"{name}_ms": t for name, t in times.items()}})
-        log(f"conv3d_int8 versus parent {cin}->{cout} k={k}: " + ", ".join(
-            f"{name} {' / '.join(f'{t:.3f}' for t in ts)} ms" for name, ts in times.items())
-            + f"; bound (bf16 out) {bound_ms:.3f} ms ({bound_by}); {card}")
-        del x, w, old_out
-        torch.cuda.empty_cache()
-    return rows
 
 
 def td_predict_argv(model: str, inputs: Path, out: Path, dtype: str, quantize: str | None):
@@ -2593,7 +2109,7 @@ def check_quantize() -> dict:
     from timed_design_tpu_torch.ops.sample import sample_inverse_cdf, sample_inverse_cdf_batched
 
     t_phase = time.perf_counter()
-    out = {"kernel": check_conv_kernel(), "forward_split": int8_forward_split()}
+    out = {"kernel": check_conv_kernel()}
 
     # (2) each mode on the card, and the card against the CPU in float32
     modes = {}
@@ -3176,61 +2692,6 @@ def argmax_rows(out: Path, model: str) -> "np.ndarray":
     return np.loadtxt(out / name, delimiter=",", ndmin=2).astype(np.float16).argmax(1)
 
 
-def python_threads_inflate(pool: ThreadPoolExecutor, k: int, srcs: list, dsts: list) -> None:
-    """``inflate_many``'s work done by ``k`` Python threads of ``pool`` over
-    ``zlib.decompress`` (the tree loader's first design), each output copied
-    into its destination."""
-    import zlib
-
-    import numpy as np
-
-    def worker(start):
-        for i in range(start, len(srcs), k):
-            dsts[i].reshape(-1).view(np.uint8)[:] = np.frombuffer(
-                zlib.decompress(srcs[i], 15, dsts[i].nbytes), np.uint8)
-
-    for fut in [pool.submit(worker, s) for s in range(k)]:
-        fut.result()
-
-
-def inflate_pools(tree: Path, entries: list) -> dict:
-    """Frames/s of the tree loader's inflate on the host: the C++ pool
-    (``io/fast_inflate.py::inflate_many``, what the loader runs) against a
-    pool of Python threads over ``zlib.decompress`` (the first design),
-    on the gzip chunks of ``entries``, each into its row of one buffer;
-    median of 5 calls after one."""
-    import statistics
-
-    import numpy as np
-
-    from timed_design_tpu_torch.io import hdf5
-    from timed_design_tpu_torch.io.fast_inflate import MAX_THREADS, inflate_many
-
-    with hdf5.File(tree) as f:
-        srcs = []
-        for pdb, chain, rid, _ in entries:
-            (c,) = f[pdb][chain][rid].chunk_index()
-            srcs.append(f.read_raw(c.addr, c.size))
-    X = np.empty((len(srcs), 21, 21, 21, 5), np.float32)
-    k = min(MAX_THREADS, os.cpu_count() or 1)
-    threads = ThreadPoolExecutor(k)
-    out = {}
-    for name, fn in (("cpp_pool", lambda: inflate_many(srcs, list(X))),
-                     ("python_threads", lambda: python_threads_inflate(threads, k, srcs, list(X)))):
-        fn()
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        out[name] = len(srcs) / statistics.median(times)
-    threads.shutdown()
-    log(f"hdf5: inflate of {len(srcs)} tree frames on {k} host threads: C++ pool "
-        f"{out['cpp_pool']:.0f} frames/s, Python threads over zlib "
-        f"{out['python_threads']:.0f} frames/s")
-    return out
-
-
 def check_hdf5(keep_flat_bf16: Path | None = None) -> dict:
     """HDF5 frame datasets on the card, through the port's own reader and
     writer (``io/hdf5.py``; this machine has no h5py). (1) ``td-voxelize``
@@ -3241,8 +2702,7 @@ def check_hdf5(keep_flat_bf16: Path | None = None) -> dict:
     host. (2) ``td-convert-dataset`` to flat float32 and bfloat16; the frames
     read back from the tree file equal the card's own voxelization
     (FrameBatchSource) to 2e-5; the loader alone, each layout to the card,
-    frames/s; the C++ inflate pool against Python threads over zlib
-    (inflate_pools). (3) ``td-predict`` of TIMED and TIMED_rotamer (registry widths,
+    frames/s. (3) ``td-predict`` of TIMED and TIMED_rotamer (registry widths,
     after one unrecorded warm-up run of each,
     random weights from a seed, bfloat16, batch 512, ``--is_structure_nmr``)
     from each layout and with ``--voxelize``: frames/s and the share of the
@@ -3252,9 +2712,9 @@ def check_hdf5(keep_flat_bf16: Path | None = None) -> dict:
     distance between two runs of one layout; against ``--voxelize``, argmax
     equal at 99% of the residues at least (its frames differ in the last
     bits). (4) ``td-predict --quantize int8`` from the flat bfloat16 file:
-    exactly PER_FORWARD int8 launches per batch per model. (5) ``fit`` of
-    registry TIMED in bfloat16 fed by FrameBatchLoader from the tree and the
-    flat bfloat16 file (train_throughput: frames/s, busy share). (6)
+    exactly PER_FORWARD int8 launches per batch per model. (5) one epoch of
+    ``fit`` of registry TIMED in bfloat16 fed by FrameBatchLoader from the
+    tree and the flat bfloat16 file (fit_one_epoch). (6)
     ``td-train --bf16 --lr_schedule cosine`` from a tree file of 1ubq, an
     overfit, then ``td-predict`` from its checkpoint on that file: recovery
     of at least 0.9. No path launches the sampling kernel; only (4) the int8 one.
@@ -3339,7 +2799,6 @@ def check_hdf5(keep_flat_bf16: Path | None = None) -> dict:
         log("hdf5: FrameBatchLoader alone to the card, batch 512: " + ", ".join(
             f"{k} {v:.0f} frames/s" for k, v in alone.items()) + f"; {gpu_name_and_power()}")
         out["loader_frames_per_s"] = alone
-        out["inflate_frames_per_s"] = inflate_pools(tree, dmap.entries[:512])
 
         # (3) td-predict from each layout, and with --voxelize
         def run(model, src, dest, extra=()):
@@ -3423,8 +2882,8 @@ def check_hdf5(keep_flat_bf16: Path | None = None) -> dict:
         for name in ("tree", "flat_bfloat16"):
             loader = FrameBatchLoader(files[name], dmap, 256, shuffle=True, shuffle_seed=0,
                                       device="cuda")
-            feed[name] = train_throughput(loader, torch.bfloat16, f"FrameBatchLoader, {name}")
-        out["train_from_file"] = feed
+            feed[name] = fit_one_epoch(loader, torch.bfloat16)
+        out["fit_steps_from_file"] = feed
 
         # (6) td-train: the 1ubq overfit, then td-predict from its checkpoint
         ubq, _ = voxelize.main([str(work / "in" / "1ubq.pdb1.gz"), "-n", "ubq", "-o", str(work)])
@@ -4299,7 +3758,7 @@ def check_scale_out() -> dict:
     (frames/s, A B B A) and the voxelization of a batch alone (a rank
     voxelizes its own rows). (c) One float32 train step of registry
     TIMED at batch 256 over the mesh against float64 (mesh_step_errors),
-    and ``fit`` in bf16 with and without the mesh (ms/step, frames/s). (b)
+    and one epoch of ``fit`` in bf16 with and without the mesh. (b)
     ``torchrun --nproc_per_node 1`` of td-predict, bf16, with and without
     ``--quantize int8``: every file byte-equal to the plain td-predict
     run's, the int8 launches counted in the child (5 a batch), each held
@@ -4422,10 +3881,8 @@ def check_scale_out() -> dict:
             steps = mesh_train_steps(mesh, x, yt)
             out["train_step"] = mesh_step_errors(*steps, "world size 1")
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-            out["fit_bf16"] = {
-                "one_card": train_throughput(src256, torch.bfloat16, "4 structures, one card"),
-                "mesh": train_throughput(src256, torch.bfloat16, "4 structures, mesh of one",
-                                         mesh=mesh)}
+            out["fit_steps_bf16"] = {"one_card": fit_one_epoch(src256, torch.bfloat16),
+                                     "mesh": fit_one_epoch(src256, torch.bfloat16, mesh=mesh)}
             if two_cards:
                 refs = {str(q): scale_out_probs(mesh, frames, q, "float32") for q in (None, "int8")}
         finally:
@@ -5085,74 +4542,6 @@ def check_front_end() -> dict:
     return out
 
 
-def hdf5_loader_ab() -> dict:
-    """A/B of the tree loader's inflate on check_hdf5's dataset
-    (HDF5_REPEATS copies of the 988 frames' files, tree gzip): ``td-predict``
-    of TIMED (registry widths, random weights from a seed, bfloat16, batch
-    512) and ``fit`` of registry TIMED (bfloat16, batch 256;
-    train_throughput) fed from the file, its gzip chunks inflated by the C++
-    pool (``io/fast_inflate.py::inflate_many``, what the loader runs) or by a
-    pool of Python threads over ``zlib.decompress``, in the order A B B A:
-    td-predict frames/s and its loader wait share, fit frames/s and its busy
-    share. Not run by ``main``: ``python3 -c "import chip_smoke as c;
-    c.hdf5_loader_ab()"``."""
-    import tempfile
-
-    import torch
-
-    import timed_design_tpu_torch.io.h5frames as h5frames
-    from timed_design_tpu_torch.cli import voxelize
-    from timed_design_tpu_torch.cli.predict import main as predict_main
-    from timed_design_tpu_torch.io import FrameBatchLoader
-    from timed_design_tpu_torch.io import create_flat_dataset_map as h5_map
-    from timed_design_tpu_torch.io.fast_inflate import MAX_THREADS
-
-    k = min(MAX_THREADS, os.cpu_count() or 1)
-    threads = ThreadPoolExecutor(k)
-
-    def python_inflate(srcs, dsts):
-        python_threads_inflate(threads, k, srcs, dsts)
-
-    cpp_pool = h5frames.inflate_many
-    work = Path(tempfile.mkdtemp(prefix=".chip_smoke_hdf5_ab_", dir=ROOT))
-    runs: dict = {"cpp_pool": [], "python_threads": []}
-    try:
-        write_structures(work / "in")
-        repeated_structures(work / "in", work / "many", HDF5_REPEATS)
-        tree, _ = voxelize.main([str(work / "many"), "-e", ".pdb*", "-n", "tree", "-o",
-                                 str(work), "--voxelise_all_states"])
-        dmap, _ = h5_map(tree)
-        for tag, fn in (("cpp_pool", cpp_pool), ("python_threads", python_inflate),
-                        ("python_threads", python_inflate), ("cpp_pool", cpp_pool)):
-            h5frames.inflate_many = fn
-            try:
-                dest = work / "predict"
-                shutil.rmtree(dest, ignore_errors=True)
-                r = predict_main(["--path_to_dataset", str(tree), "--path_to_model", "TIMED",
-                                  "--allow-random-weights", "--batch_size", "512",
-                                  "--compute_dtype", "bfloat16", "--device", "cuda",
-                                  "--path_to_output", str(dest), "--path_to_datasetmap",
-                                  str(dest / "datasetmap.txt"), "--is_structure_nmr"])
-                t = r.timings["predict"]
-                loader = FrameBatchLoader(tree, dmap, 256, shuffle=True, shuffle_seed=0,
-                                          device="cuda")
-                fit = train_throughput(loader, torch.bfloat16, f"FrameBatchLoader, tree, {tag}")
-            finally:
-                h5frames.inflate_many = cpp_pool
-            runs[tag].append({"frames_per_s": len(dmap.entries) / t,
-                              "loader_wait_share": r.loader_wait_s / t,
-                              "fit_frames_per_s": fit["frames_per_s"],
-                              "fit_busy_share": fit["busy_share"]})
-            log(f"hdf5 A/B tree {tag}: td-predict TIMED bf16 {runs[tag][-1]['frames_per_s']:.0f} "
-                f"frames/s (loader wait {runs[tag][-1]['loader_wait_share']:.3f}); fit "
-                f"{fit['frames_per_s']:.0f} frames/s at busy {fit['busy_share']:.3f}")
-    finally:
-        threads.shutdown()
-        shutil.rmtree(work, ignore_errors=True)
-    log(f"hdf5 A/B, {len(dmap.entries)} frames; {gpu_name_and_power()}: {json.dumps(runs)}")
-    return runs
-
-
 def main() -> int:
     import torch
 
@@ -5246,13 +4635,10 @@ def main() -> int:
         "bound_by": conv_main["bound_by"],
         # one float64 F.conv3d of the codes: the same int32 sums
         "library_ms": conv_main["library_ms"],
-        # the same function before the epilogue was fused: int32 route + PyTorch
-        "int32_epilogue_ms": conv_main["int32_epilogue_ms"],
         "cudnn_bf16_ms": conv_main["cudnn_bf16_ms"],
         "shape": [conv_main["batch"], 21, conv_main["cin"], conv_main["cout"], conv_main["k"]],
         "shapes_equal_to_plain": quantize["kernel"]["shapes_checked"],
         "per_shape": quantize["kernel"]["per_shape"],
-        "forward_split": quantize["forward_split"],
     }, {
         "name": "dense_block",
         "route": "cuda",

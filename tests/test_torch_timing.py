@@ -177,25 +177,44 @@ def test_device_span_records_nothing_on_the_cpu():
     assert rec.device_spans == [] and rec.spans == []
 
 
-def test_load_dataset_and_predict_spans(tmp_path):
-    """Two batches of 1ubq's 76 frames: a next_batch, fetch_wait and
+@pytest.mark.parametrize("n_models,batch_size", [(1, 40), (2, 8)],
+                         ids=["one_model", "two_models_ten_batches"])
+def test_load_dataset_and_predict_spans(tmp_path, n_models, batch_size):
+    """Batches of 1ubq's 76 frames: a next_batch, fetch_wait and
     write_batch span each, with the batch's index; ``loader_wait_s`` is the
     next_batch phase's total; forward and voxelize are device spans, none
-    on the CPU."""
-    from timed_design_tpu_torch.engine import load_dataset_and_predict
+    on the CPU. Two models share each device batch over ten batches, more
+    than the four in flight: each model's CSV holds its own Predictor's
+    ``predict_probs`` of the same batches, in input order."""
+    from timed_design_tpu_torch.engine import Predictor, load_dataset_and_predict
+    from timed_design_tpu_torch.io import load_datasetmap, load_prediction_matrix
     from timed_design_tpu_torch.models import timed
-    from timed_design_tpu_torch.voxel import make_frame_set
+    from timed_design_tpu_torch.voxel import FrameBatchSource, make_frame_set
 
     torch.manual_seed(0)
     fs = make_frame_set([UBQ])
+    models = [timed(filters=(4, 8)).eval() for _ in range(n_models)]
+    if n_models > 1:
+        for i, m in enumerate(models):
+            m.name = f"m{i}"
     with recording() as rec:
-        result = load_dataset_and_predict([timed(filters=(4, 8)).eval()], fs, batch_size=40,
+        result = load_dataset_and_predict(models, fs, batch_size=batch_size,
                                           dataset_map_path=tmp_path / "datasetmap.txt",
                                           path_to_output=tmp_path, device="cpu")
+    n_batches = -(-76 // batch_size)
     for name, thread in (("next_batch", "MainThread"), ("fetch_wait", "MainThread"),
                          ("write_batch", "csv-writer")):
         got = _names(rec, name)
-        assert [s.id for s in got] == [0, 1] and {s.thread for s in got} == {thread}, name
+        assert [s.id for s in got] == list(range(n_batches)), name
+        assert {s.thread for s in got} == {thread}, name
+    if n_models > 1:
+        dmap = load_datasetmap(tmp_path / "datasetmap.txt", is_old=True)
+        frames = torch.cat([X[:n] for X, _, n in FrameBatchSource(fs, dmap, batch_size,
+                                                                  device="cpu")])
+        for m in models:
+            want = Predictor(m, batch_size=batch_size, device="cpu").predict_probs(frames)
+            got = load_prediction_matrix(tmp_path / f"{m.name}.csv", dtype=np.float64)
+            np.testing.assert_array_equal(got, want.astype(np.float16))
     waits = sum(s.end_ns - s.start_ns for s in _names(rec, "next_batch")) / 1e9
     assert waits <= result.loader_wait_s <= waits + 0.01
     (whole,) = _names(rec, "td_predict")

@@ -4,7 +4,9 @@ The port of ``Predictor``, ``_resolve_model``, ``load_dataset_and_predict``
 and ``predict_structure`` (timed_design_tpu/engine/predictor.py). The batch
 is fixed (the last one is padded); up to ``max_in_flight`` batches are
 queued on the device before the oldest result is fetched, each result
-copied once into a pinned host buffer. ``load_dataset_and_predict`` takes
+copied once into a pinned host buffer (``predict_pipeline``, which
+``Predictor.predict_stream`` and ``load_dataset_and_predict`` share).
+``load_dataset_and_predict`` takes
 its frames from an in-memory ``FrameSet`` (PDB files, voxelized on the
 device batch by batch) or from an HDF5 frame dataset, tree or flat layout
 (``io/h5frames.py``).
@@ -188,16 +190,12 @@ class Predictor:
     def predict_stream(
         self, batches: t.Iterable[tuple[t.Any, int]], max_in_flight: int = 8,
     ) -> t.Iterator[np.ndarray]:
-        """Pipelined prediction over (frames, n_valid) pairs: queues up to
-        ``max_in_flight`` batches before waiting on the oldest. Yields
-        (n_valid, n_classes) float32 arrays in input order."""
-        pending: collections.deque = collections.deque()
-        for frames, n_valid in batches:
-            pending.append((self.run_device_batch(self.to_device(frames)), n_valid))
-            if len(pending) >= max_in_flight:
-                yield self.fetch(*pending.popleft())
-        while pending:
-            yield self.fetch(*pending.popleft())
+        """Pipelined prediction over (frames, n_valid) pairs
+        (``predict_pipeline`` of this predictor alone). Yields (n_valid,
+        n_classes) float32 arrays in input order."""
+        tagged = ((frames, n_valid, i) for i, (frames, n_valid) in enumerate(batches))
+        for (out,), _, _ in predict_pipeline([self], tagged, max_in_flight):
+            yield out
 
     def predict_probs(self, frames) -> np.ndarray:
         """Predict (N, n_classes) for any N; pads to the batch."""
@@ -206,6 +204,37 @@ class Predictor:
         chunks = ((frames[s : s + B], min(B, N - s)) for s in range(0, N, B))
         parts = list(self.predict_stream(chunks))
         return np.concatenate(parts) if parts else np.empty((0, self.n_classes), np.float32)
+
+
+def predict_pipeline(
+    predictors: t.Sequence[Predictor], batches: t.Iterable[tuple[t.Any, int, t.Any]],
+    max_in_flight: int = 8,
+) -> t.Iterator[tuple[list[np.ndarray], int, t.Any]]:
+    """The in-flight pipeline: for each (frames, n_valid, tag), place the
+    batch once (``predictors[0].to_device``; the predictors share its
+    device, batch and compute dtype) and queue every predictor's forward on
+    it inside a ``forward`` device span; with ``max_in_flight`` batches
+    queued, wait for the oldest inside a ``fetch_wait`` span. Yields
+    (each predictor's (n_valid, n_classes) rows, n_valid, tag) in input
+    order; the spans take the tag as their id. The wait stays on the
+    caller's thread: it throttles the launches."""
+    pending: collections.deque = collections.deque()
+
+    def oldest_while(more_than: int):
+        while len(pending) > more_than:
+            handles, n_valid, tag = pending.popleft()
+            with span("fetch_wait", tag):
+                outs = [Predictor.fetch(h, n_valid) for h in handles]
+            yield outs, n_valid, tag
+
+    first = predictors[0]
+    for frames, n_valid, tag in batches:
+        x = first.to_device(frames)
+        with device_span("forward", tag, device=first.device):
+            handles = [p.run_device_batch(x) for p in predictors]
+        pending.append((handles, n_valid, tag))
+        yield from oldest_while(max_in_flight - 1)
+    yield from oldest_while(0)
 
 
 def _resolve_model(m, compute_dtype: torch.dtype | None = None,
@@ -496,7 +525,6 @@ def load_dataset_and_predict(
                    if writer else None)
     try:
         with timer.phase("predict"):
-            pending: collections.deque = collections.deque()
             max_in_flight = max(2, 8 // n_models)
             # one writer thread drains a bounded queue in order, so the
             # append order (and resume, and the bytes) are the serial path's
@@ -537,30 +565,22 @@ def load_dataset_and_predict(
             writer_th = threading.Thread(target=_writer, name="csv-writer", daemon=True)
             writer_th.start()
 
-            def _drain_one():
-                # the wait for the device stays on this thread: it throttles
-                # the launches (at most max_in_flight batches queued)
-                outs, y, n, index = pending.popleft()
-                with span("fetch_wait", index):
-                    outs_np = [Predictor.fetch(h, n) for h in outs]
-                if writer_err:
-                    raise writer_err[0]
-                if writer:
-                    write_q.put((outs_np, y, n, index))
-
             batches = iter(source)
-            try:
+            labels: dict[int, np.ndarray] = {}  # batch index -> its labels, until written
+
+            def _frames():
                 for index in range(start_batch, source.n_batches):
                     with waits.phase("next_batch", index):
-                        X, y, n_valid = next(batches)
-                    x_dev = predictors[0].to_device(X)
-                    with device_span("forward", index, device=device):
-                        outs = [p.run_device_batch(x_dev) for p in predictors]
-                    pending.append((outs, y, n_valid, index))
-                    if len(pending) >= max_in_flight:
-                        _drain_one()
-                while pending:
-                    _drain_one()
+                        X, labels[index], n_valid = next(batches)
+                    yield X, n_valid, index
+
+            try:
+                for outs_np, n, index in predict_pipeline(predictors, _frames(), max_in_flight):
+                    if writer_err:
+                        raise writer_err[0]
+                    y = labels.pop(index)
+                    if writer:
+                        write_q.put((outs_np, y, n, index))
             finally:
                 batches.close()
                 write_q.put(stop)

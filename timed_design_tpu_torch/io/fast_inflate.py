@@ -7,9 +7,8 @@ itself and inflates them here, in the C++ thread pool of
 thread pool over Python's ``zlib`` came first: it inflates more slowly
 (``zlib.decompress`` allocates every output anew, copied in under the
 interpreter lock), and a training loop fed from a tree file then keeps the
-card busy for less of its time; ``chip_smoke.py::hdf5_loader_ab`` runs
-the two end to end on the card (``PERF.md``). The library is compiled with g++ at
-first use into the package's git-ignored ``_build/``; a build or load
+card busy for less of its time (the HDF5 record of ``PERF.md`` section 6,
+measured on the card). The library is compiled with g++ at first use into the package's git-ignored ``_build/``; a build or load
 failure raises, with no quiet fallback. ``deflate_many``, the writer's side,
 stays a pool of Python threads over ``zlib.compress`` (its outputs are
 small).
