@@ -123,7 +123,8 @@ def test_make_frame_set_spans(tmp_path):
 def test_make_frame_set_counters(tmp_path, scanner, monkeypatch):
     """``frame_set.atoms`` counts the atom records of every file; the
     Python scanner counts a file in ``frame_set.python_scans``, the C++
-    one none."""
+    one none; ``frame_set.files`` counts the files, and
+    ``frame_set.pooled_files`` none of them below the pool's threshold."""
     import timed_design_tpu_torch.structure._native as native
     from tdbench import structures
     from timed_design_tpu_torch.voxel import make_frame_set
@@ -143,7 +144,8 @@ def test_make_frame_set_counters(tmp_path, scanner, monkeypatch):
         make_frame_set(paths)
     assert records > 0
     assert rec.counters == {"frame_set.atoms": records,
-                            "frame_set.python_scans": 0 if scanner == "native" else 3}
+                            "frame_set.python_scans": 0 if scanner == "native" else 3,
+                            "frame_set.files": 3, "frame_set.pooled_files": 0}
     make_frame_set(paths[:1])  # off: nothing counted
     assert rec.counters["frame_set.atoms"] == records
 

@@ -156,6 +156,19 @@ def count(name: str, n: int) -> None:
             rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def record_span(name: str, start_ns: int, end_ns: int, thread: str | None = None,
+                id=None) -> None:
+    """Keep a span timed elsewhere, say in a worker process (its
+    ``perf_counter_ns`` is this process's clock on Linux), under ``thread``
+    (the calling thread by default), a child of the span open on the calling
+    thread; kept while recording is on."""
+    rec = _active
+    if rec is not None and not rec.closed:
+        stack = rec._stack()
+        rec.spans.append(Span(name, start_ns, end_ns, thread or threading.current_thread().name,
+                              next(rec._index), stack[-1] if stack else None, id))
+
+
 def traced(name: str):
     """Decorator: every call of the function is a ``span(name)``."""
     def wrap(fn):

@@ -35,10 +35,11 @@ from ..io.datasetmap import DatasetMap, _residue_sort_key
 from ..io.h5frames import bf16_bits
 from ..ops.matmul_voxelize import voxelize_matmul
 from ..structure import Structure, load_pdb
-from ..structure.pdb import read_pdb_file, scan_pdb_text, structures_from_fields
 from ..utils import timing
 from ..utils.timing import PhaseTimer
+from . import frame_pool
 from .codec import Codec
+from .frame_pool import _align_states
 from .frames import FrameAtoms, structure_to_frame_atoms
 from .voxelize import voxelize_frame_atoms
 
@@ -197,37 +198,6 @@ class _FlatWriter:
             self.cols[name].append(values)
 
 
-def _align_states(fas: list[FrameAtoms], name: str) -> list[FrameAtoms]:
-    """Restrict every NMR state's rows to the (chain, residue) keys present
-    in ALL states, each state keeping its own order, so that row i of every
-    state is the same residue (the consensus averages states by position)."""
-    key_sets = [set(zip(fa.chain_ids, fa.residue_ids)) for fa in fas]
-    common = set.intersection(*key_sets)
-    if all(len(fa.labels) == len(common) for fa in fas):
-        return fas
-    dropped = sorted(set.union(*key_sets) - common)
-    warnings.warn(
-        f"{name}: aligning {len(fas)} NMR states on {len(common)} common "
-        f"residues; dropping {len(dropped)} residue(s) missing a valid "
-        f"frame in some state: "
-        + ", ".join(f"{c}{r}" for c, r in dropped[:8])
-        + ("..." if len(dropped) > 8 else "")
-    )
-    out = []
-    for fa in fas:
-        keep = [i for i, k in enumerate(zip(fa.chain_ids, fa.residue_ids)) if k in common]
-        out.append(dataclasses.replace(
-            fa,
-            ca=fa.ca[keep],
-            rot=fa.rot[keep],
-            valid=fa.valid[keep],
-            labels=[fa.labels[i] for i in keep],
-            chain_ids=[fa.chain_ids[i] for i in keep],
-            residue_ids=[fa.residue_ids[i] for i in keep],
-        ))
-    return out
-
-
 @dataclasses.dataclass
 class FrameSet:
     """The frame atoms of a run's structures, by structure name, and their
@@ -326,28 +296,87 @@ def make_frame_set(
     batch. ``voxelise_all_states`` keeps every NMR state as a structure
     ``<pdb>_<state>``, the states aligned on their common residues.
 
+    Each file's work is ``frame_pool.file_frame_atoms``. A call on enough
+    files, where the host has the cores (``frame_pool.pool_workers``), hands
+    it to the persistent pool of worker processes, largest files first; until
+    the pool is up (it starts at the first such call and is never waited on)
+    the caller does it itself. Either way the structures keep the files'
+    order, and the arrays are the same.
+
     Spans (``utils/timing.py``): ``frame_set`` around the call,
-    ``frame_set.parse`` and ``frame_set.frame_atoms`` for each file,
+    ``frame_set.parse`` and ``frame_set.frame_atoms`` for each file (under
+    the thread name ``frame_set worker <pid>`` where a worker did it),
+    ``frame_set.gather`` while the caller waits on the pool,
     ``frame_set.index`` around the ``FrameSet``'s tables. Counters: the
-    atom records scanned (``frame_set.atoms``) and the files the Python
-    scanner read for want of the C++ one (``frame_set.python_scans``)."""
+    files (``frame_set.files``) and those a worker did
+    (``frame_set.pooled_files``); the atom records scanned
+    (``frame_set.atoms``) and the files the Python scanner read for want of
+    the C++ one (``frame_set.python_scans``)."""
     if isinstance(codec, str):
         codec = Codec.from_string(codec)
-    structures: list[tuple[str, FrameAtoms]] = []
-    for path in structure_paths:
-        with timing.span("frame_set.parse"):
-            text, name = read_pdb_file(path)
-            fields, native = scan_pdb_text(text)
-            states = structures_from_fields(fields, name, all_states=voxelise_all_states)
-        timing.count("frame_set.atoms", len(fields["coords"]))
-        timing.count("frame_set.python_scans", int(not native))
-        with timing.span("frame_set.frame_atoms"):
-            fas = [structure_to_frame_atoms(s, codec) for s in states]
-            if len(fas) > 1:
-                fas = _align_states(fas, name=states[0].name)
-        structures += [(s.name, fa) for s, fa in zip(states, fas)]
+    paths = list(structure_paths)
+    timing.count("frame_set.files", len(paths))
+    timing.count("frame_set.pooled_files", 0)
+    done: list[frame_pool.FileFrameAtoms | None] = [None] * len(paths)
+    size = frame_pool.pool_workers(len(paths))
+    order = list(range(len(paths)))
+    if size:
+        order.sort(key=lambda i: -Path(paths[i]).stat().st_size)
+    workers = frame_pool.POOL.acquire(size) if size else None
+    k = 0
+    while k < len(order) and workers is None:  # no pool, or it is starting or held
+        done[order[k]] = _in_process(paths[order[k]], codec, voxelise_all_states)
+        k += 1
+        if size:
+            workers = frame_pool.POOL.acquire(size)
+    if workers is not None:
+        with timing.span("frame_set.gather"):
+            _gather(workers, paths, frame_pool.chunks(order[k:], size), codec,
+                    voxelise_all_states, done)
     with timing.span("frame_set.index"):
-        return FrameSet(structures, codec)
+        return FrameSet([s for d in done for s in d.structures], codec)
+
+
+def _record(done: frame_pool.FileFrameAtoms, thread: str | None = None) -> None:
+    timing.record_span("frame_set.parse", *done.parse_ns, thread=thread)
+    timing.record_span("frame_set.frame_atoms", *done.frame_atoms_ns, thread=thread)
+    timing.count("frame_set.atoms", done.atoms)
+    timing.count("frame_set.python_scans", int(done.python_scan))
+
+
+def _in_process(path, codec: Codec, all_states: bool) -> frame_pool.FileFrameAtoms:
+    done = frame_pool.file_frame_atoms(path, codec, all_states)
+    _record(done)
+    return done
+
+
+def _gather(workers: frame_pool.Workers, paths: list, chunks: list[list[int]], codec: Codec,
+            all_states: bool, done: list) -> None:
+    """The files of ``chunks`` (indices into ``paths``) over ``workers``,
+    into ``done``, and the workers given back. A file's own error is raised
+    here as it was raised there; where a worker died, the files not done
+    yet are done in process, and the pool starts new workers."""
+    lost = False
+    answers = workers.run(frame_pool.frame_atoms_in_worker,
+                          [([paths[i] for i in chunk], codec, all_states) for chunk in chunks])
+    try:
+        for j, pid, ok, value in answers:
+            if not ok:
+                raise value
+            for i, (file_done, caught) in zip(chunks[j], value):
+                done[i] = file_done
+                _record(file_done, f"frame_set worker {pid}")
+                timing.count("frame_set.pooled_files", 1)
+                for message, category in caught:
+                    warnings.warn(message, category)
+    except frame_pool.WorkerLost:
+        lost = True
+    finally:
+        answers.close()  # waits for the chunks in flight before the workers go back
+        frame_pool.POOL.release(workers, lost)
+    for i, path in enumerate(paths):
+        if done[i] is None:
+            done[i] = _in_process(path, codec, all_states)
 
 
 def _byte_order(name: str) -> bytes:
