@@ -374,7 +374,9 @@ def load_dataset_and_predict(
     (``timings``); a batch's ``next_batch`` (the loader), ``forward`` (a
     device span around the models' forwards), ``fetch_wait`` (this thread
     blocked on the batch's results) and ``write_batch`` (on the
-    ``csv-writer`` thread), each with the batch's index as its id.
+    ``csv-writer`` thread), each with the batch's index as its id; inside
+    ``write_batch`` in rotamer mode, ``write.rot_csv`` around each model's
+    full-precision ``_rot.csv`` rows.
 
     ``start_batch`` resumes: the CSVs are appended from that batch on, then
     read back whole for decoding, and the one-hot ``{model}.csv`` is
@@ -509,7 +511,8 @@ def load_dataset_and_predict(
 
         def write(self, rows: np.ndarray) -> None:
             if predict_rotamers:
-                write_prediction_rows(self._main, rows, float16=False)
+                with span("write.rot_csv"):
+                    write_prediction_rows(self._main, rows, float16=False)
                 onehot = ROTAMER_TO_AA_ONEHOT[rows.argmax(axis=1)]
                 write_prediction_rows(self._onehot, onehot, float16=True)
             else:

@@ -5,12 +5,17 @@ BatchNorm] blocks, SpatialDropout in training, a 1x1x1 projection to the
 class count, global average pooling and softmax over 20 residues or 338
 rotamers. Input is cast to the compute dtype; pooling and softmax run in
 float32.
+
+Recorded while the span recorder is on (``utils/timing.py``): the device
+span ``timed.head`` around the head's convolution, its float32 cast and the
+global pooling.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..utils import timing
 from .layers import (
     ConvBlock,
     at_least_float32,
@@ -53,8 +58,9 @@ class TIMED(nn.Module):
             x = spatial_dropout_3d(
                 x.permute(0, 2, 3, 4, 1), self.dropout_rate, True, generator
             ).permute(0, 4, 1, 2, 3)
-        x = cast_conv(self.head, x)
-        x = global_average_pool_3d(at_least_float32(x))
+        with timing.device_span("timed.head", device=x.device):
+            x = cast_conv(self.head, x)
+            x = global_average_pool_3d(at_least_float32(x))
         return x if logits else torch.softmax(x, dim=-1)
 
 
